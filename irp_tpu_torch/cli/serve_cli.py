@@ -1,0 +1,137 @@
+"""Online inference server of the PyTorch port: serve a trained model
+over HTTP on the card (irp_tpu_torch/serve.py).
+
+  # serve the final artifact on :8000
+  python -m irp_tpu_torch.cli.serve_cli --weights final_model.npz \\
+      --classes classes.json
+
+  # score one JPEG
+  curl -s -X POST --data-binary @cat.jpg -H 'Content-Type: image/jpeg' \\
+      'http://127.0.0.1:8000/predict?topk=3'
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+# flags of the JAX package's serve CLI that this slice does not run
+_NOT_PORTED = {
+    "data_parallel": "--data-parallel (ROADMAP.md, Queue 1, A14)",
+    "replicas": "--replicas (ROADMAP.md, Queue 1, A11: reload and "
+                "replicas)",
+    "allow_reload": "--allow-reload (ROADMAP.md, Queue 1, A11: reload and "
+                    "replicas)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--weights", required=True,
+                   help="final-weights artifact (.npz or torch .pth)")
+    p.add_argument("--classes", default=None,
+                   help="class names: JSON file or comma-separated list")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--batch-size", type=int, default=64,
+                   help="micro-batch cap = largest padded batch")
+    p.add_argument("--window-ms", type=float, default=5.0,
+                   help="max time the batcher waits to fill a batch")
+    p.add_argument("--batch-buckets", default=None,
+                   help="allowed padded batch sizes: 'auto' = the "
+                        "1,2,4,...,batch-size ladder, or a comma list "
+                        "ending at batch-size")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="eval crop; default = the npz artifact's embedded "
+                        "value, else 224")
+    p.add_argument("--decoder", choices=["auto", "pil"], default="auto",
+                   help="image decoder (both PIL in this slice)")
+    p.add_argument("--tta", action="store_true",
+                   help="average the softmax over the identity and the "
+                        "horizontal flip (~2x device time per dispatch)")
+    p.add_argument("--fused-frozen-blocks", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="route the frozen identity bottlenecks through the "
+                        "fused CUDA kernel: auto = on the card when "
+                        "eligible, on = forced, off = never")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--verbose", action="store_true",
+                   help="log each HTTP request")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="not in this port yet (an error)")
+    p.add_argument("--replicas", default=None,
+                   help="not in this port yet (an error)")
+    p.add_argument("--allow-reload", action="store_true",
+                   help="not in this port yet (an error)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for dest, what in _NOT_PORTED.items():
+        if getattr(args, dest) not in (None, False):
+            print(f"error: {what} is not ported yet", file=sys.stderr)
+            return 2
+
+    import numpy as np
+
+    from irp_tpu_torch.infer import (load_class_names, load_predictor,
+                                     serving_buckets)
+    from irp_tpu_torch.serve import make_server
+
+    class_names = load_class_names(args.classes) if args.classes else None
+    pad_buckets = None
+    try:
+        if args.batch_buckets:
+            pad_buckets = serving_buckets(args.batch_buckets,
+                                          args.batch_size)
+        predictor = load_predictor(
+            args.weights, class_names=class_names,
+            batch_size=args.batch_size, image_size=args.image_size,
+            pad_buckets=pad_buckets, tta=args.tta,
+            device="cpu" if args.cpu else "cuda",
+            fused_frozen_blocks=args.fused_frozen_blocks)
+    except (ValueError, NotImplementedError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # bind first (fails fast on a busy port), then warm every served
+    # batch size (cuDNN algorithm choice, kernel build) before traffic
+    server = make_server(predictor, host=args.host, port=args.port,
+                         window_ms=args.window_ms, decoder=args.decoder,
+                         verbose=args.verbose, weights_path=args.weights)
+    cfg = predictor.model.config
+    shapes = predictor.pad_buckets or (predictor.batch_size,)
+    print(f"warming ResNet{cfg.depth} forward on {predictor.device} "
+          f"(crop {cfg.image_size}, batch sizes {list(shapes)}) ...",
+          flush=True)
+    for n in shapes:
+        predictor.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+
+    # SIGTERM drains like Ctrl-C: stop accepting, finish in-flight work
+    draining = threading.Event()
+
+    def _term(signum, frame):
+        if draining.is_set():
+            return
+        draining.set()
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _term)
+    print(f"serving on http://{args.host}:{server.port}  (POST /predict, "
+          f"GET /healthz, GET /stats, GET /metrics)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    draining.set()
+    print("shutting down", flush=True)
+    server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,289 @@
+"""ResNet family (v1.5 bottleneck placement, torchvision module names).
+
+Counterpart of the JAX package's ``models/resnet.py``.  Modules are
+logically NCHW and meant to be held in ``channels_last`` memory; module
+names follow torchvision (``conv1``, ``bn1``, ``layer{1..4}.{j}.conv{k}``,
+``downsample.{0,1}``), so torchvision-layout state_dicts load as they are.
+
+- Parameters are f32.  Each conv casts its input and weight to the
+  compute dtype (bf16 by default) per op; BatchNorm computes in f32 and
+  casts its output back, as flax's ``dtype``/``param_dtype`` pair does.
+- ``frozen_prefix`` leading stages (and the stem, when it is > 0) run
+  without autograd: the counterpart of the JAX package's single
+  ``stop_gradient`` cut after the last frozen stage.
+- ``bn_stats_mode='trainable_only'`` keeps the frozen stages' BN in
+  inference form even under ``.train()``; 'all' follows ``.train()``.
+- Frozen identity bottlenecks (j > 0 in a frozen stage) may run through
+  the fused kernel (``ops/cuda_resnet.py``), under the JAX package's
+  eligibility rule: bottleneck depth, plain width, inference-form BN, bf16
+  compute, default precision.  The parameter tree is the same either way.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
+                                           fused_identity_bottleneck)
+
+STAGE_SIZES = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+BOTTLENECK_DEPTHS = (50, 101, 152)
+STAGE_NAMES = ("layer1", "layer2", "layer3", "layer4")
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's lecun_normal: truncated normal (2 sigma) of variance
+    1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+class Conv2d(nn.Conv2d):
+    """Bias-free conv computed in ``compute_dtype`` from f32 params."""
+
+    def __init__(self, cin, cout, kernel, stride=1, padding=0, groups=1,
+                 compute_dtype=torch.bfloat16):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding,
+                         groups=groups, bias=False)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                        self.padding, 1, self.groups)
+
+    def reset_parameters_from(self, generator):
+        fan_in = self.weight[0].numel()
+        lecun_normal_(self.weight, fan_in, generator)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm in f32, output cast to ``compute_dtype``.  ``frozen``
+    keeps it in inference form (running stats, no updates) under
+    ``.train()``."""
+
+    def __init__(self, features, compute_dtype=torch.bfloat16,
+                 frozen: bool = False):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+        self.compute_dtype = compute_dtype
+        self.frozen = frozen
+
+    def forward(self, x):
+        batch_stats = self.training and not self.frozen
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight, self.bias, batch_stats, self.momentum,
+                         self.eps)
+        return y.to(self.compute_dtype)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs (ResNet-18/34)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride, dtype, frozen_bn,
+                 groups=1, width_per_group=64):
+        super().__init__()
+        del groups, width_per_group  # the ResNet checks BasicBlock gets 1/64
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1,
+                            compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(planes, dtype, frozen_bn)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, compute_dtype=dtype)
+        self.bn2 = BatchNorm2d(planes, dtype, frozen_bn)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(
+                Conv2d(inplanes, planes, 1, stride, compute_dtype=dtype),
+                BatchNorm2d(planes, dtype, frozen_bn))
+
+    def forward(self, x, fused: bool = False):
+        del fused  # no fused kernel for basic blocks
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3(stride) -> 1x1 with expansion 4 (ResNet-50/101/152),
+    stride on the 3x3 (v1.5).  ``groups``/``width_per_group``: ResNeXt /
+    Wide-ResNet.  ``fusable`` marks a frozen identity block that may run
+    through the fused kernel when the forward asks for it."""
+
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride, dtype, frozen_bn,
+                 groups=1, width_per_group=64, fusable: bool = False):
+        super().__init__()
+        width = int(planes * width_per_group / 64.0) * groups
+        out = planes * self.expansion
+        self.conv1 = Conv2d(inplanes, width, 1, compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(width, dtype, frozen_bn)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, groups=groups,
+                            compute_dtype=dtype)
+        self.bn2 = BatchNorm2d(width, dtype, frozen_bn)
+        self.conv3 = Conv2d(width, out, 1, compute_dtype=dtype)
+        self.bn3 = BatchNorm2d(out, dtype, frozen_bn)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(
+                Conv2d(inplanes, out, 1, stride, compute_dtype=dtype),
+                BatchNorm2d(out, dtype, frozen_bn))
+        self.compute_dtype = dtype
+        self.fusable = fusable
+        self._folded = None  # set by cache_folded_weights()
+
+    def forward(self, x, fused: bool = False):
+        if fused and self.fusable:
+            return self._fused(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+    def folded_weights(self):
+        """(w1, b1, w2, b2, w3, b3) in the kernel's layout: each inference
+        BN folded into its conv in f32 (HWIO), weights then cast to the
+        compute dtype, biases kept f32."""
+        dt = self.compute_dtype
+        out = []
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                         (self.conv3, self.bn3)):
+            kernel = conv.weight.detach().permute(2, 3, 1, 0)  # OIHW->HWIO
+            wf, bf = fold_bn_into_conv(kernel, bn.weight.detach(),
+                                       bn.bias.detach(), bn.running_mean,
+                                       bn.running_var, bn.eps)
+            if kernel.shape[0] == 1:
+                wf = wf.reshape(wf.shape[2], wf.shape[3])
+            out += [wf.to(dt).contiguous(), bf.float().contiguous()]
+        return tuple(out)
+
+    def cache_folded_weights(self) -> None:
+        """Fold once for inference, so the fused forward does not refold
+        per call.  train(), load_state_dict and device or dtype moves drop
+        the cache; an in-place edit of the parameters does not."""
+        with torch.no_grad():
+            self._folded = self.folded_weights()
+
+    def train(self, mode: bool = True):
+        self._folded = None
+        return super().train(mode)
+
+    def _apply(self, *args, **kwargs):
+        self._folded = None
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._folded = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def _fused(self, x):
+        # NCHW in channels_last memory is NHWC: the permute is a view
+        x_nhwc = x.to(self.compute_dtype).permute(0, 2, 3, 1).contiguous()
+        weights = self._folded or self.folded_weights()
+        y = fused_identity_bottleneck(x_nhwc, *weights)
+        return y.permute(0, 3, 1, 2)
+
+
+class ResNet(nn.Module):
+    """Headless ResNet returning globally pooled features (B, C)."""
+
+    def __init__(self, depth: int = 50, groups: int = 1,
+                 width_per_group: int = 64, dtype=torch.bfloat16,
+                 frozen_prefix: int = 3,
+                 bn_stats_mode: str = "trainable_only",
+                 precision: str = "default",
+                 fused_frozen_blocks: str = "off"):
+        super().__init__()
+        if depth not in STAGE_SIZES:
+            raise ValueError(f"unsupported ResNet depth {depth}")
+        if bn_stats_mode not in ("trainable_only", "all"):
+            raise ValueError(f"unknown bn_stats_mode {bn_stats_mode!r}")
+        block_cls = Bottleneck if depth in BOTTLENECK_DEPTHS else BasicBlock
+        if (groups != 1 or width_per_group != 64) and block_cls is BasicBlock:
+            raise ValueError(
+                f"groups/width_per_group variants need a bottleneck depth "
+                f"(50/101/152), got depth {depth}")
+        self.depth = depth
+        self.frozen_prefix = frozen_prefix
+        self.fused_frozen_blocks = fused_frozen_blocks
+        self.compute_dtype = dtype
+
+        def frozen_bn(frozen_stage: bool) -> bool:
+            return bn_stats_mode == "trainable_only" and frozen_stage
+
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(64, dtype, frozen_bn(frozen_prefix > 0))
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        fusable_stage = (block_cls is Bottleneck and groups == 1
+                         and width_per_group == 64
+                         and bn_stats_mode == "trainable_only"
+                         and dtype == torch.bfloat16
+                         and precision == "default")
+        inplanes = 64
+        for i, num_blocks in enumerate(STAGE_SIZES[depth]):
+            frozen = (i + 1) <= frozen_prefix
+            planes = 64 * 2 ** i
+            blocks = []
+            for j in range(num_blocks):
+                stride = 2 if (i > 0 and j == 0) else 1
+                kwargs = {}
+                if block_cls is Bottleneck:
+                    # j > 0 <=> identity block
+                    kwargs["fusable"] = fusable_stage and frozen and j > 0
+                blocks.append(block_cls(inplanes, planes, stride, dtype,
+                                        frozen_bn(frozen), groups,
+                                        width_per_group, **kwargs))
+                inplanes = planes * block_cls.expansion
+            setattr(self, STAGE_NAMES[i], nn.Sequential(*blocks))
+        self.num_features = inplanes
+
+    def init_weights(self, generator: torch.Generator | None = None) -> None:
+        """flax's initializers: lecun_normal convs, BN scale 1 / bias 0,
+        running mean 0 / var 1."""
+        for mod in self.modules():
+            if isinstance(mod, Conv2d):
+                mod.reset_parameters_from(generator)
+            elif isinstance(mod, BatchNorm2d):
+                mod.reset_parameters()
+
+    def fuse_active(self, x: torch.Tensor) -> bool:
+        """Whether this forward routes fusable blocks through the kernel:
+        always for 'on', on CUDA inputs for 'auto'."""
+        mode = self.fused_frozen_blocks
+        return mode == "on" or (mode == "auto" and x.is_cuda)
+
+    def cache_folded_weights(self) -> None:
+        """Fold the fusable blocks' BN once (Bottleneck.cache_folded_weights);
+        for a model kept in eval form."""
+        if self.fused_frozen_blocks == "off":
+            return
+        for mod in self.modules():
+            if isinstance(mod, Bottleneck) and mod.fusable:
+                mod.cache_folded_weights()
+
+    def forward(self, x):
+        fused = self.fuse_active(x)
+        grad = torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and self.frozen_prefix == 0):
+            x = self.maxpool(F.relu(self.bn1(self.conv1(
+                x.to(self.compute_dtype)))))
+        for i, name in enumerate(STAGE_NAMES):
+            with torch.set_grad_enabled(grad and i >= self.frozen_prefix):
+                for block in getattr(self, name):
+                    x = block(x, fused)
+        return x.float().mean(dim=(2, 3)).to(self.compute_dtype)
