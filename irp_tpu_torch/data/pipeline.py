@@ -1,5 +1,5 @@
-"""Image decoding to the cache geometry (the JAX package's
-``data/pipeline.py``, decode part).
+"""Image decoding to the cache geometry and the decoded dataset (the JAX
+package's ``data/pipeline.py``, decode part and ``CachedDataset``).
 
 Decoding goes through PIL; the native batch JPEG decoder comes with a
 later slice, so ``decoder='auto'`` and ``'pil'`` both use PIL here.
@@ -8,7 +8,8 @@ later slice, so ``decoder='auto'`` and ``'pil'`` both use PIL here.
 from __future__ import annotations
 
 import io
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,3 +40,20 @@ def decode_blobs(blobs: Sequence[bytes], size: int = CACHE_SIZE,
     for j in range(n):
         out[j] = decode_to_rgb256(blobs[j], size)
     return out
+
+
+@dataclass
+class CachedDataset:
+    """Decoded uint8 dataset (memmap-backed) + labels + metadata.
+
+    The JAX package's class also tracks each sample's source shard for
+    k-fold splits; that part comes with the training slice.
+    """
+
+    images: np.ndarray  # (N, 256, 256, 3) uint8
+    labels: np.ndarray  # (N,) int32
+    keys: List[str]
+    class_names: Tuple[str, ...]
+
+    def __len__(self):
+        return len(self.labels)

@@ -119,6 +119,19 @@ class Classifier(nn.Module):
         with self._precision(x):
             return self.classifier(self.backbone(x)).float()
 
+    def features(self, x):
+        """Headless forward in eval form (inference BN), f32 (B, F): the
+        outlier-detection feature extractor's forward."""
+        training = self.training
+        if training:
+            self.eval()
+        try:
+            with self._precision(x):
+                return self.backbone(x).float()
+        finally:
+            if training:
+                self.train()
+
     def init_weights(self, generator: torch.Generator | None = None) -> None:
         """flax's initializers: lecun_normal kernels, zero Dense biases."""
         self.backbone.init_weights(generator)

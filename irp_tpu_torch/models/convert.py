@@ -11,6 +11,9 @@ The port's modules follow torchvision names under ``backbone.`` and a
 - Dense kernel (in, out) <-> Linear weight (out, in);
 - BN params.scale/bias <-> weight/bias, batch_stats.mean/var <->
   running_mean/running_var.
+
+:func:`load_torch_checkpoint` and :func:`merge_pretrained` bring a
+torchvision-layout ``.pth`` (a pretrained backbone) into a port model.
 """
 
 from __future__ import annotations
@@ -128,3 +131,45 @@ def state_dict_to_jax_variables(state_dict: Mapping) -> Dict[str, Dict]:
             coll, fname = bn_map[field]
             _set(out[coll], base + (mod, fname), arr)
     return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` state_dict loaded on the CPU: a bare state_dict or a dict
+    with a ``'state_dict'`` entry."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return dict(obj)
+
+
+def merge_pretrained(model: torch.nn.Module,
+                     state_dict: Mapping) -> torch.nn.Module:
+    """Overlay a ResNet state_dict (torchvision names, ``backbone.`` prefix
+    optional) onto ``model``'s weights in place; returns ``model``.
+
+    ``fc.*``, ``num_batches_tracked`` and head keys other than
+    ``classifier.{1,4}`` are skipped, so the head keeps its init when the
+    checkpoint is a torchvision backbone.  An unknown key raises KeyError,
+    a shape mismatch ValueError, before any weight is changed.
+    """
+    own = model.state_dict()
+    updates = {}
+    for key, value in state_dict.items():
+        name = key[len("backbone."):] if key.startswith("backbone.") else key
+        if name.startswith("fc.") or name.endswith("num_batches_tracked"):
+            continue
+        m = re.fullmatch(r"classifier\.(\d)\.(weight|bias)", name)
+        if m and m.group(1) not in ("1", "4"):
+            continue
+        target = name if m else f"backbone.{name}"
+        if target not in own:
+            raise KeyError(f"pretrained key {key} is not in the model")
+        want, got = tuple(own[target].shape), tuple(value.shape)
+        if want != got:
+            raise ValueError(f"shape mismatch at {key}: model {want}, "
+                             f"pretrained {got}")
+        updates[target] = value
+    with torch.no_grad():
+        for target, value in updates.items():
+            own[target].copy_(torch.as_tensor(value))
+    return model

@@ -1,9 +1,13 @@
-"""Eval crop + normalize: the CUDA kernel's wrapper and its plain version.
+"""The image-path kernels' wrappers and their plain versions.
 
-Counterpart of the JAX package's ``ops/pallas_image.py``
-(``pallas_eval_preprocess``).  The kernel is ``csrc/eval_preprocess.cu``.
-The output is NHWC, which is the model's NCHW input in ``channels_last``
-memory: ``out.permute(0, 3, 1, 2)`` is that input, with no copy.
+Counterpart of the JAX package's ``ops/pallas_image.py``:
+
+- :func:`eval_preprocess` (``pallas_eval_preprocess``): eval crop +
+  normalize, kernel ``csrc/eval_preprocess.cu``.  The output is NHWC,
+  which is the model's NCHW input in ``channels_last`` memory:
+  ``out.permute(0, 3, 1, 2)`` is that input, with no copy.
+- :func:`pairwise_dist` (``pallas_pairwise_dist``): squared Euclidean
+  distances for the curation kNN, kernel ``csrc/pairwise_dist.cu``.
 """
 
 from __future__ import annotations
@@ -102,3 +106,79 @@ def eval_preprocess(images_u8: torch.Tensor, out_size: int = 224,
 
 
 eval_preprocess.launches = 0
+
+
+def _pairwise_args(a, b, a_sq, b_sq):
+    """Validated (b, a_sq, b_sq): b defaults to a, and each squared norm
+    not given is computed."""
+    if b is None:
+        b = a
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.float32 or t.ndim != 2:
+            raise ValueError(f"{name} must be a 2-D float32 tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"a is {tuple(a.shape)} and b {tuple(b.shape)}: "
+                         "their widths differ")
+    if a_sq is None:
+        a_sq = (a * a).sum(dim=1)
+    if b_sq is None:
+        b_sq = a_sq if b is a else (b * b).sum(dim=1)
+    for name, t, rows in (("a_sq", a_sq, a), ("b_sq", b_sq, b)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (rows.shape[0],):
+            raise ValueError(f"{name} must be a float32 vector with one "
+                             f"value per row, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    for name, t in (("b", b), ("a_sq", a_sq), ("b_sq", b_sq)):
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+    return b, a_sq, b_sq
+
+
+def pairwise_dist_plain(a: torch.Tensor, b: torch.Tensor | None = None,
+                        a_sq: torch.Tensor | None = None,
+                        b_sq: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in float32:
+    ``(a_sq[:, None] + b_sq[None, :] - 2 a b^T).clamp_min(0)``."""
+    b, a_sq, b_sq = _pairwise_args(a, b, a_sq, b_sq)
+    return (a_sq[:, None] + b_sq[None, :] - 2.0 * (a @ b.T)).clamp_min(0.0)
+
+
+def pairwise_dist(a: torch.Tensor, b: torch.Tensor | None = None,
+                  a_sq: torch.Tensor | None = None,
+                  b_sq: torch.Tensor | None = None) -> torch.Tensor:
+    """Squared Euclidean distances ``max(|a_i|^2 + |b_j|^2 - 2 a_i.b_j, 0)``:
+    a (M, D) and b (N, D) float32 (b defaults to a) -> (M, N) float32.
+
+    ``a_sq`` / ``b_sq`` are the rows' squared norms, computed here when
+    not given.  A CPU tensor goes through :func:`pairwise_dist_plain`; a
+    CUDA tensor launches the kernel on the current stream (contiguous
+    inputs) or raises.  The kernel's result is a view of an (M, N')
+    buffer whose row stride N' rounds N up to a multiple of 4, so every
+    row starts 16-byte aligned.
+    """
+    if a.device.type == "cpu":
+        return pairwise_dist_plain(a, b, a_sq, b_sq)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    b, a_sq, b_sq = _pairwise_args(a, b, a_sq, b_sq)
+    for name, t in (("a", a), ("b", b), ("a_sq", a_sq), ("b_sq", b_sq)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m, d = a.shape
+    n = b.shape[0]
+    ldo = -(-n // 4) * 4
+    out = torch.empty((m, ldo), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out[:, :n]
+    lib = _kernels.load("pairwise_dist")
+    with torch.cuda.device(a.device):
+        code = lib.irp_pairwise_dist(
+            a.data_ptr(), b.data_ptr(), a_sq.data_ptr(), b_sq.data_ptr(),
+            out.data_ptr(), m, n, d, ldo, _kernels.stream_handle(a.device))
+    _kernels.check(lib, code, "pairwise_dist")
+    pairwise_dist.launches += 1
+    return out[:, :n]
+
+
+pairwise_dist.launches = 0

@@ -1,9 +1,12 @@
 """Fused frozen identity bottleneck: the CUDA kernel's wrapper, its plain
-version and the BatchNorm folding it needs.
+version and the BatchNorm folding it needs; and the relu copy that is its
+bandwidth floor.
 
-Counterpart of the JAX package's ``ops/pallas_resnet.py``.  The kernel is
-``csrc/identity_bottleneck.cu``.  Arguments keep the JAX layout: x is
-NHWC, conv kernels are HWIO, 1x1 kernels are (C_in, C_out) matrices.
+Counterpart of the JAX package's ``ops/pallas_resnet.py`` and of
+``tools/bench_fused_block.py::copy_floor``.  The kernels are
+``csrc/identity_bottleneck.cu`` and ``csrc/copy_floor.cu``.  Arguments
+keep the JAX layout: x is NHWC, conv kernels are HWIO, 1x1 kernels are
+(C_in, C_out) matrices.
 """
 
 from __future__ import annotations
@@ -112,3 +115,41 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
 
 
 fused_identity_bottleneck.launches = 0
+
+
+def relu_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the copy-floor kernel."""
+    return x.clamp_min(0)
+
+
+def relu_copy(x: torch.Tensor) -> torch.Tensor:
+    """``relu(x)`` into a new tensor: the copy floor a fused block at the
+    same shape is measured against (one read and one write of x).
+
+    A CPU tensor runs :func:`relu_copy_plain`; a CUDA tensor launches the
+    kernel on the current stream (contiguous, 16-byte aligned bf16) or
+    raises.
+    """
+    if x.device.type == "cpu":
+        return relu_copy_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _kernels.load("copy_floor")
+    with torch.cuda.device(x.device):
+        code = lib.irp_relu_copy(x.data_ptr(), out.data_ptr(), x.numel(),
+                                 _kernels.stream_handle(x.device))
+    _kernels.check(lib, code, "relu_copy")
+    relu_copy.launches += 1
+    return out
+
+
+relu_copy.launches = 0

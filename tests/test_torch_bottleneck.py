@@ -145,3 +145,43 @@ def test_kernel_matches_plain_on_card():
         rel = float((got.float() - want.float()).abs().max()
                     / want.float().abs().max())
         assert rel <= 2.0 ** -6, (hw, c, m, rel)
+
+
+def _bf16_map(seed, shape=(2, 7, 5, 24)):
+    """A bf16 NHWC map with +-inf and a NaN among normal values."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    x.reshape(-1)[:3] = (np.inf, -np.inf, np.nan)
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def test_relu_copy_plain_is_relu():
+    """The copy floor's plain version: max(x, 0) elementwise, NaN kept
+    (tools/bench_fused_block.py::copy_floor computes jnp.maximum(x, 0))."""
+    x = _bf16_map(0)
+    got = cuda_resnet.relu_copy(x)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = np.maximum(x.float().numpy(), 0)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_relu_copy_cpu_runs_plain_version_without_launch():
+    x = _bf16_map(1)
+    before = cuda_resnet.relu_copy.launches
+    assert torch.equal(cuda_resnet.relu_copy(x).view(torch.int16),
+                       cuda_resnet.relu_copy_plain(x).view(torch.int16))
+    assert cuda_resnet.relu_copy.launches == before
+
+
+@pytest.mark.gpu
+def test_relu_copy_kernel_bit_exact_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    # 8-element vectors plus a scalar tail (numel % 8 == 3), and a large
+    # map that takes several grid-stride rounds
+    for shape in ((3, 7, 5, 3), (32, 56, 56, 256)):
+        x = _bf16_map(2, shape).cuda()
+        before = cuda_resnet.relu_copy.launches
+        got = cuda_resnet.relu_copy(x)
+        assert cuda_resnet.relu_copy.launches == before + 1
+        assert torch.equal(got.view(torch.int16),
+                           cuda_resnet.relu_copy_plain(x).view(torch.int16))
