@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
               same inputs, and timed with CUDA events beside its bound,
               the plain version and a PyTorch yardstick call:
               eval_preprocess (<= 1 bf16 ulp); identity bottleneck
-              (max|kernel - plain| / max|plain| <= 2^-6; yardstick the
+              (max|kernel - plain| / max|plain| <= 2^-6, at B=32 and at
+              the edge shapes of its tiling, K1_EDGE_SHAPES; yardstick the
               unfused cuDNN block); pairwise_dist at 1024 x 26,179 rows,
               D = 50 and D = 2 (max|kernel - plain| <= 1e-5 *
               max(|a_i|^2 + |b_j|^2), plain in cuBLAS f32 with TF32 off;
@@ -51,7 +52,8 @@ Phases, each printing one JSON line:
               row block).  Prints images/s of extract_features, seconds
               per stage and the share of planted images flagged.
 6. bench    — python -m irp_tpu_torch.tools.bench_fused_block: the fused
-              block, the unfused block and the copy floor at B=256.
+              block beside its bound, the unfused block, the copy floor
+              and torch.relu at B=256.
               Gates: the bottleneck's max|kernel - plain| / max|plain|
               from the tool's run within 2^-6 at each shape, and the
               copy floor bit for bit against clamp_min(0) on one B=256
@@ -61,7 +63,8 @@ Phases, each printing one JSON line:
               the device's idle share.
 
 Then the card's nvidia-smi line, one JSON object with every kernel's
-numbers (launches summed over the paths that ran it), and last {"ok":
+numbers (launches summed over the paths that ran it; K1's and K4's
+B=256 times from the bench phase under "b256"), and last {"ok":
 true, "device": {...}}.  Exits non-zero, with no result, when there is no
 CUDA device or any phase fails.
 """
@@ -85,11 +88,11 @@ import numpy as np
 import torch
 
 # the port, from the checkout this script sits in; without it this raises
-# before anything runs.  gpu_ms: median device time over cold-L2 bursts.
-from irp_tpu_torch.tools.bench_fused_block import gpu_ms, n_sets
+# before anything runs.  gpu_ms: median device time over cold-L2 bursts;
+# bound: the least time for given bytes and operations on the H100 SXM.
+from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
+                                                   n_sets)
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PHASES = ("device", "build", "kernels", "serve", "curation", "bench")
 EXTRA_PHASES = ("profile",)  # run only when named in --phases
@@ -98,6 +101,19 @@ BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
                      ("layer2", 28, 28, 512, 128, 3),
                      ("layer3", 14, 14, 1024, 256, 5))
 K1_TOL = 2.0 ** -6
+# (B, H, W, C, M): the edges of K1's tiling, held to K1_TOL in the kernels
+# phase: a whole image in one unit (8x8, 4x4, 7x7), fewer pixels than a
+# tile (3x3), ragged last bands (13 = 8 + 5, 17 = 6 + 6 + 5), M=512
+# (ResNet50's layer4 when frozen), a band the kernel narrows to fit its
+# shared memory (24x24 at M=512), and the ResNet50 shapes at B=1 and 3
+K1_EDGE_SHAPES = ((2, 8, 8, 64, 64), (2, 14, 14, 256, 64), (2, 4, 4, 128, 128),
+                  (2, 3, 3, 64, 128), (2, 7, 7, 1024, 256),
+                  (2, 13, 13, 1024, 256), (3, 17, 17, 512, 128),
+                  (2, 7, 7, 2048, 512), (1, 24, 24, 2048, 512)) + tuple(
+    (b, h, w, c, m) for b in (1, 3)
+    for _, h, w, c, m, _ in (("layer1", 56, 56, 256, 64, 2),
+                             ("layer2", 28, 28, 512, 128, 3),
+                             ("layer3", 14, 14, 1024, 256, 5)))
 # Served probabilities against the unfused predictor, and each bf16
 # forward against the float32 one.  At the head's init scale each bf16
 # forward drifts up to about 0.008 from the float32 forward on the card
@@ -120,14 +136,6 @@ FEATURE_TOL = 2.0 ** -5
 
 def emit(payload: dict) -> None:
     print(json.dumps(payload), flush=True)
-
-
-def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
-    """The least time (ms) for the work: bytes over the memory rate or
-    operations over ``peak_flops``, whichever is larger, and which."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -216,9 +224,7 @@ def _k1_case(gen, name, h, w, c, m, b=32):
     scale = float(want.float().abs().max())
     rel = float((got.float() - want.float()).abs().max()) / scale
     rel_unfused = float((got.float() - unfused.float()).abs().max()) / scale
-    w_bytes = (c * m + 9 * m * m + m * c) * 2 + (2 * m + c) * 4
-    flops = 2 * b * h * w * (c * m + 9 * m * m + m * c)
-    bound_ms, bound_by = bound(set_bytes + w_bytes, flops)
+    bound_ms, bound_by = k1_bound(b, h, w, c, m)
 
     def unfused_call(x):
         with torch.inference_mode():
@@ -236,6 +242,35 @@ def _k1_case(gen, name, h, w, c, m, b=32):
                                     for x in xs]),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "ok": rel <= K1_TOL}
+
+
+def _k1_edges(gen) -> list:
+    """K1 against its plain version at K1_EDGE_SHAPES (random weights at
+    unit fan-in scale, biases 0.1), max|kernel - plain| / max|plain|."""
+    from irp_tpu_torch.ops.cuda_resnet import (fused_identity_bottleneck,
+                                               reference_identity_bottleneck)
+
+    cases = []
+    for b, h, w, c, m in K1_EDGE_SHAPES:
+        def rand(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen) * scale
+
+        x = rand(b, h, w, c).to(torch.bfloat16).cuda()
+        weights = [rand(c, m, scale=c ** -0.5).to(torch.bfloat16).cuda(),
+                   rand(m, scale=0.1).cuda(),
+                   rand(3, 3, m, m, scale=(9 * m) ** -0.5).to(
+                       torch.bfloat16).cuda(),
+                   rand(m, scale=0.1).cuda(),
+                   rand(m, c, scale=m ** -0.5).to(torch.bfloat16).cuda(),
+                   rand(c, scale=0.1).cuda()]
+        got = fused_identity_bottleneck(x, *weights)
+        want = reference_identity_bottleneck(x, *weights)
+        torch.cuda.synchronize()
+        rel = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        cases.append({"shape": [b, h, w, c, m], "rel_err": rel,
+                      "ok": rel <= K1_TOL})
+    return cases
 
 
 def _k3_case(gen, d: int) -> dict:
@@ -325,6 +360,9 @@ def phase_kernels(out: dict, seed: int) -> None:
     # one entry per kernel: the bottleneck's work is one ResNet50 forward's
     # 10 launches at B=32 (2 x layer1, 3 x layer2, 5 x layer3), and the
     # copy floor's the same 10 shapes
+    edges = _k1_edges(gen)
+    emit({"phase": "kernels", "kernel": "identity_bottleneck",
+          "edge_cases": edges})
     k1 = {"name": "identity_bottleneck", "route": "cuda",
           "source": "irp_tpu_torch/csrc/identity_bottleneck.cu",
           "replaces": "irp_tpu/ops/pallas_resnet.py:140",
@@ -332,7 +370,7 @@ def phase_kernels(out: dict, seed: int) -> None:
           "max_abs_err": max(cs["max_abs_err"] for cs in k1_cases),
           "max_rel_err": max(cs["rel_err"] for cs in k1_cases),
           "tolerance": "max|kernel-plain|/max|plain| <= 2^-6",
-          "ok": all(cs["ok"] for cs in k1_cases),
+          "ok": all(cs["ok"] for cs in k1_cases + edges),
           "cases": k1_cases,
           **_per_forward(k1_cases, ("ms", "plain_ms", "bound_ms",
                                     "unfused_block_ms", "copy_floor_ms"))}
@@ -809,6 +847,7 @@ def phase_bench(out: dict, seed: int) -> None:
             r["rel_err"] <= K1_TOL)
         checks[f"{r['shape']}_copy_floor_bit_equal"] = (
             r["copy_floor_bit_equal"])
+    out["bench"] = results
     emit({"phase": "bench", "shapes": results, "launches": launches,
           "checks": checks})
     failed = [k for k, v in checks.items() if not v]
@@ -926,6 +965,14 @@ def main(argv=None) -> int:
         phase_bench(out, args.seed)
     if "profile" in phases:
         phase_profile(out, args.seed)
+    # the bench phase's B=256 times, beside each kernel's yardstick call
+    b256 = {"identity_bottleneck": [
+        {"shape": r["shape"], "ms": r["fused_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["unfused_ms"],
+         "copy_floor_ms": r["copy_floor_ms"]} for r in out.get("bench", [])],
+        "copy_floor": [
+        {"shape": r["shape"], "ms": r["copy_floor_ms"],
+         "library_ms": r["relu_ms"]} for r in out.get("bench", [])]}
     kernels = []
     for name, entry in out.get("kernels", {}).items():
         by_path = {path: counts[name]
@@ -939,7 +986,8 @@ def main(argv=None) -> int:
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
-            "library_ms": entry["library_ms"]})
+            "library_ms": entry["library_ms"],
+            **({"b256": b256[name]} if b256.get(name) else {})})
     print(out["smi"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -41,7 +41,7 @@ SIGNATURES = {
                                      _P]),
     },
     "identity_bottleneck": {
-        "irp_identity_bottleneck": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+        "irp_identity_bottleneck": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     },
     "pairwise_dist": {
         "irp_pairwise_dist": (_I, [_P] * 5 + [_I] * 4 + [_P]),

@@ -67,6 +67,25 @@ def _check_shapes(x, w1, b1, w2, b2, w3, b3):
                              f"{tuple(got[name].shape)}")
 
 
+K1_WIDTHS = (64, 128, 256, 512)  # the M the fused kernel takes
+
+
+def bottleneck_plan(h: int, w: int, c: int, m: int) -> int:
+    """Output rows per work unit (the band) of the fused kernel at this
+    shape: the narrowest band whose output pixels fill three quarters of
+    one 128-pixel pass (two 64-row wgmma tiles), so that each unit costs
+    one pass of phases 2 and 3 and the units are as many as that allows:
+    blocks that walk many short units drift out of step, and one block's
+    HBM-bound phase 1 overlaps another's tensor-bound phases 2 and 3.  The
+    kernel narrows it further where its shared memory does not hold the
+    band.  Raises ValueError for a C or M the kernel does not take.
+    """
+    if c % 64 or m not in K1_WIDTHS:
+        raise ValueError(f"kernel needs C a multiple of 64 and M in "
+                         f"{K1_WIDTHS}, got C={c} M={m}")
+    return min(h, -(-96 // w))
+
+
 def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """One fused identity bottleneck block: relu(x + f(x)).
 
@@ -76,8 +95,9 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
     x: (B, H, W, C); w1: (C, M), w2: (3, 3, M, M), w3: (M, C) in x.dtype;
     b1/b2: (M,), b3: (C,) float32.  A CPU tensor runs
     :func:`reference_identity_bottleneck`; a CUDA tensor launches the
-    kernel on the current stream (bf16 x and weights, C and M multiples
-    of 64, contiguous) or raises.
+    kernel on the current stream (bf16 x and weights, C a multiple of 64,
+    M in :data:`K1_WIDTHS`, contiguous, a row that fits the kernel's
+    shared memory; :func:`bottleneck_plan` picks its band) or raises.
     """
     _check_shapes(x, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
@@ -98,17 +118,15 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if c % 64 or m % 64:
-        raise ValueError(f"kernel needs C and M multiples of 64, got C={c} "
-                         f"M={m}")
     out = torch.empty_like(x)
     if b == 0:
         return out
+    band = bottleneck_plan(h, w, c, m)
     lib = _kernels.load("identity_bottleneck")
     with torch.cuda.device(x.device):
         code = lib.irp_identity_bottleneck(
             *(t.data_ptr() for t in args), out.data_ptr(), b, h, w, c, m,
-            _kernels.stream_handle(x.device))
+            band, _kernels.stream_handle(x.device))
     _kernels.check(lib, code, "identity_bottleneck")
     fused_identity_bottleneck.launches += 1
     return out

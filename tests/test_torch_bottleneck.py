@@ -16,9 +16,9 @@ from irp_tpu_torch.ops import cuda_resnet
 torch.set_num_threads(1)
 
 
-def _rand_block(rng, c, m, hw=8):
+def _rand_block(rng, c, m, hw=8, b=2):
     """x, w1, b1, w2, b2, w3, b3 as float32 numpy (the JAX tests' mix)."""
-    return (rng.normal(size=(2, hw, hw, c)).astype(np.float32),
+    return (rng.normal(size=(b, hw, hw, c)).astype(np.float32),
             (rng.normal(size=(c, m)) * 0.1).astype(np.float32),
             rng.normal(size=(m,)).astype(np.float32),
             (rng.normal(size=(3, 3, m, m)) * 0.1).astype(np.float32),
@@ -129,22 +129,51 @@ def test_fused_on_rejects_ineligible_config(kwargs, match):
         Classifier(cfg)
 
 
+@pytest.mark.parametrize("h,w,c,m,band", [
+    (56, 56, 256, 64, 2), (28, 28, 512, 128, 4), (14, 14, 1024, 256, 7),
+    (7, 7, 2048, 512, 7),  # ResNet50's layer1-4 identity blocks
+    (8, 8, 64, 64, 8), (4, 4, 128, 128, 4),  # the whole image in one unit
+    (13, 13, 1024, 256, 8), (17, 17, 512, 128, 6),  # ragged last bands
+])
+def test_bottleneck_plan_bands(h, w, c, m, band):
+    """About one 128-pixel pass of output a unit."""
+    got = cuda_resnet.bottleneck_plan(h, w, c, m)
+    assert got == band
+    assert 1 <= got <= h and got * w < 96 + w
+
+
+@pytest.mark.parametrize("h,w,c,m,match", [
+    (8, 8, 64, 192, "M in"), (8, 8, 96, 64, "multiple of 64"),
+])
+def test_bottleneck_plan_rejects_shapes_the_kernel_does_not_take(h, w, c, m,
+                                                                 match):
+    with pytest.raises(ValueError, match=match):
+        cuda_resnet.bottleneck_plan(h, w, c, m)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.default_rng(6)
-    # a partial last band (14 = 3 * 4 + 2), fewer pixels than a tile (3x3)
-    for hw, c, m in ((8, 64, 64), (14, 256, 64), (4, 128, 128), (3, 64, 128),
-                     (7, 1024, 256)):
-        args = _rand_block(rng, c, m, hw)
+    # the whole image in one unit (8x8, 4x4, 3x3: fewer pixels than a tile,
+    # 7x7), ragged last bands (13 = 8 + 5, 17 = 6 + 6 + 5), M=512, a band
+    # the kernel narrows to fit shared memory (24x24 at M=512: 4 -> 2),
+    # and ResNet50's three shapes at B=1 and B=3
+    cases = [(2, 8, 64, 64), (2, 14, 256, 64), (2, 4, 128, 128),
+             (2, 3, 64, 128), (2, 7, 1024, 256), (2, 13, 1024, 256),
+             (3, 17, 512, 128), (2, 7, 2048, 512), (1, 24, 2048, 512)]
+    cases += [(b, hw, c, m) for b in (1, 3) for hw, c, m in
+              ((56, 256, 64), (28, 512, 128), (14, 1024, 256))]
+    for b, hw, c, m in cases:
+        args = _rand_block(rng, c, m, hw, b)
         _, torch_args = _as_bf16(args)
         torch_args = [t.cuda() for t in torch_args]
         got = cuda_resnet.fused_identity_bottleneck(*torch_args)
         want = cuda_resnet.reference_identity_bottleneck(*torch_args)
         rel = float((got.float() - want.float()).abs().max()
                     / want.float().abs().max())
-        assert rel <= 2.0 ** -6, (hw, c, m, rel)
+        assert rel <= 2.0 ** -6, (b, hw, c, m, rel)
 
 
 def _bf16_map(seed, shape=(2, 7, 5, 24)):
@@ -176,9 +205,9 @@ def test_relu_copy_cpu_runs_plain_version_without_launch():
 def test_relu_copy_kernel_bit_exact_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    # 8-element vectors plus a scalar tail (numel % 8 == 3), and a large
-    # map that takes several grid-stride rounds
-    for shape in ((3, 7, 5, 3), (32, 56, 56, 256)):
+    # 8-element vectors plus a scalar tail (numel % 8 == 3), a large map,
+    # and a tail (numel % 8 == 5) behind more blocks than one wave
+    for shape in ((3, 7, 5, 3), (32, 56, 56, 256), (31, 57, 55, 93)):
         x = _bf16_map(2, shape).cuda()
         before = cuda_resnet.relu_copy.launches
         got = cuda_resnet.relu_copy(x)
