@@ -16,16 +16,30 @@ Phases, each printing one JSON line:
               gives it, held against its plain PyTorch version on the
               same inputs, and timed with CUDA events beside its bound,
               the plain version and a PyTorch yardstick call:
-              eval_preprocess (<= 1 bf16 ulp); identity bottleneck
-              (max|kernel - plain| / max|plain| <= 2^-6, at B=32 and at
-              the edge shapes of its tiling, K1_EDGE_SHAPES; yardstick the
-              unfused cuDNN block); pairwise_dist at 1024 x 26,179 rows,
-              D = 50 and D = 2 (max|kernel - plain| <= 1e-5 *
-              max(|a_i|^2 + |b_j|^2), plain in cuBLAS f32 with TF32 off;
-              yardstick torch.cdist; its operation bound at the 67 TFLOP/s
-              float32 rate, not the bf16 tensor-core rate); copy_floor at
-              the bottleneck's three shapes (bit for bit; yardstick
-              torch.relu), whose time each bottleneck case also shows.
+              eval_preprocess at B=64, 256 -> 224 bf16 and at its edge
+              shapes (K2_EDGE_SHAPES: f32 output, a 250-wide and a 70x90
+              source, a 7-pixel row), 0 bf16 ulp everywhere; identity
+              bottleneck (max|kernel - plain| / max|plain| <= 2^-6, at
+              B=32 and at the edge shapes of its tiling, K1_EDGE_SHAPES;
+              yardstick the unfused cuDNN block); pairwise_topk on one
+              row block of each kNN of the curation path (K3_SHAPES:
+              1024 x 26,179 at D = 50, k = 15 and at D = 2, k = 75; 1024
+              x 2,618 at D = 2, k = 30) and at the edges of its tiling
+              (K3_EDGE_CASES: k = 1 and 128, ragged M, N below one tile,
+              splits shorter than k, self_offset -1 and > 0): >= 99.9%
+              equal indices and squared distances within 1e-5 *
+              max(|a_i|^2 + |b_j|^2) against the plain version (cuBLAS
+              f32, TF32 off, stable sort), equal indices and distances on
+              an integer grid, lower index first among exact duplicates,
+              k = 129 refused; yardstick torch.topk(torch.cdist(...)),
+              two calls; its operation bound M N (2D + 1) at the 67
+              TFLOP/s float32 rate; copy_floor at the bottleneck's three
+              shapes (bit for bit; yardstick torch.relu), whose time each
+              bottleneck case also shows.  With --parent DIR (a checkout
+              of the parent commit), K2 and the parent's K3 path (its
+              distance tile kernel, the self mask and torch.topk) are
+              built from DIR and timed in turns with this tree's (parent,
+              new, new, parent): parent_ms, parent_path_ms.
 4. serve    — ResNet50/224 (10 classes, hidden 512, random weights from a
               seed) saved as .npz, loaded by load_predictor and served by
               make_server; concurrent JPEG requests over HTTP.  Every
@@ -48,7 +62,7 @@ Phases, each printing one JSON line:
               indices, squared distances within 1e-5 * max(|x_i|^2 +
               |x_j|^2)); the LOBPCG spectral path; a finite embedding;
               the outlier counts; and the launch counters
-              (eval_preprocess once per batch, pairwise_dist once per kNN
+              (eval_preprocess once per batch, pairwise_topk once per kNN
               row block).  Prints images/s of extract_features, seconds
               per stage and the share of planted images flagged.
 6. bench    — python -m irp_tpu_torch.tools.bench_fused_block: the fused
@@ -175,10 +189,42 @@ def phase_build(out: dict) -> None:
     emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": report})
 
 
-def _k2_entry(gen) -> dict:
+# (B, H, W, out_size, dtype): K2 off the cache geometry, each held to 0
+# bf16 ulp: f32 output; a 250-wide source and a 70x90 one, whose rows and
+# crop offsets are not 16-byte multiples; a 7-pixel output row
+K2_EDGE_SHAPES = ((3, 256, 256, 224, torch.float32),
+                  (2, 250, 250, 224, torch.bfloat16),
+                  (3, 70, 90, 64, torch.bfloat16),
+                  (2, 20, 20, 7, torch.bfloat16))
+
+
+def _turns(new_calls, parent_calls) -> dict:
+    """gpu_ms of the new and the parent's calls in turns (parent, new,
+    new, parent), each side's mean, so that drift in the card's clock
+    falls on both; only the new side when there is no parent."""
+    if parent_calls is None:
+        return {"ms": gpu_ms(new_calls)}
+    turns = [gpu_ms(parent_calls), gpu_ms(new_calls), gpu_ms(new_calls),
+             gpu_ms(parent_calls)]
+    return {"ms": (turns[1] + turns[2]) / 2,
+            "parent_ms": (turns[0] + turns[3]) / 2,
+            "turns_parent_new_new_parent": turns}
+
+
+def _k2_entry(gen, parent) -> dict:
+    from irp_tpu_torch import _kernels
     from irp_tpu_torch.ops.cuda_image import (eval_preprocess,
                                               eval_preprocess_plain)
 
+    edges = []
+    for b, h, w, o, dtype in K2_EDGE_SHAPES:
+        x = torch.randint(0, 256, (b, h, w, 3), generator=gen,
+                          dtype=torch.uint8).cuda()
+        ulps = bf16_ulps(eval_preprocess(x, o, dtype=dtype),
+                         eval_preprocess_plain(x, o, dtype=dtype))
+        edges.append({"shape": f"({b},{h},{w},3) u8 -> ({b},{o},{o},3) "
+                      f"{str(dtype).split('.')[-1]}", "max_bf16_ulps": ulps,
+                      "ok": ulps == 0.0})
     b, s, o = 64, 256, 224
     sets = [torch.randint(0, 256, (b, s, s, 3), generator=gen,
                           dtype=torch.uint8).cuda() for _ in range(4)]
@@ -189,18 +235,31 @@ def _k2_entry(gen) -> dict:
     err = float((got.float() - want.float()).abs().max())
     n_bytes = b * o * o * 3 * (1 + 2)
     bound_ms, bound_by = bound(n_bytes, 2 * b * o * o * 3)
-    entry = {
+    parent_calls = None
+    if parent is not None:
+        def parent_call(x):
+            # the parent's library under the same wrapper and C signature
+            mine = _kernels._libs["eval_preprocess"]
+            _kernels._libs["eval_preprocess"] = parent["eval_preprocess"]
+            try:
+                eval_preprocess(x, o)
+            finally:
+                _kernels._libs["eval_preprocess"] = mine
+        parent_calls = [lambda x=x: parent_call(x) for x in sets]
+    timed = _turns([lambda x=x: eval_preprocess(x, o) for x in sets],
+                   parent_calls)
+    return {
         "name": "eval_preprocess", "route": "cuda",
         "source": "irp_tpu_torch/csrc/eval_preprocess.cu",
         "replaces": "irp_tpu/ops/pallas_image.py:79",
         "shape": f"({b},{s},{s},3) u8 -> ({b},{o},{o},3) bf16",
-        "max_abs_err": err, "max_bf16_ulps": ulps, "tolerance": "1 bf16 ulp",
-        "ms": gpu_ms([lambda x=x: eval_preprocess(x, o) for x in sets]),
+        "max_abs_err": err, "max_bf16_ulps": ulps, "tolerance": "0 bf16 ulp",
+        **timed,
         "plain_ms": gpu_ms([lambda x=x: eval_preprocess_plain(x, o)
                             for x in sets]),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "ok": ulps <= 1.0}
-    return entry
+        "edge_cases": edges,
+        "ok": ulps == 0.0 and all(e["ok"] for e in edges)}
 
 
 def _k1_case(gen, name, h, w, c, m, b=32):
@@ -273,41 +332,157 @@ def _k1_edges(gen) -> list:
     return cases
 
 
-def _k3_case(gen, d: int) -> dict:
-    """pairwise_dist on one kNN row block (1024 rows against 26,179
-    points) at width d."""
-    from irp_tpu_torch.ops.cuda_image import (pairwise_dist,
-                                              pairwise_dist_plain)
+# (name, M, N, D, k): one row block of each kNN of the curation path: the
+# UMAP kNN on PCA-50, the global LOF kNN on the 2-D embedding and a
+# per-class LOF kNN (a class of ~2,618 of the 26,179 images)
+K3_SHAPES = (("umap", K3_ROWS, N_IMAGES, 50, 15),
+             ("lof_global", K3_ROWS, N_IMAGES, 2, 75),
+             ("lof_class", K3_ROWS, 2618, 2, 30))
+# (M, N, D, k, self_offset): the edges of K3's tiling and selection: k = 1
+# and 128, M not a multiple of the row tile, N below one column tile,
+# splits with fewer columns than k, self_offset -1 and > 0 (a is
+# b[off:off + M] where that fits, else points of its own)
+K3_EDGE_CASES = ((200, 300, 50, 1, -1), (129, 50, 3, 20, -1),
+                 (129, 150, 3, 20, 60), (65, 2618, 2, 128, 0),
+                 (33, 5000, 64, 128, -1), (300, 1000, 128, 32, 100),
+                 (1000, 26_179, 50, 15, 25_179))
+K3_TOL = 1e-5  # squared distances, over max(|a_i|^2 + |b_j|^2)
 
-    m, n = K3_ROWS, N_IMAGES
+
+def _k3_compare(got, want, a, b) -> dict:
+    """Kernel against plain: share of equal indices (>= 99.9%) and the
+    largest squared-distance gap over max(|a_i|^2 + |b_j|^2) (<= 1e-5):
+    both sum |a|^2 + |b|^2 - 2ab in f32 in different orders, so near ties
+    may swap and each distance moves by a few ulps of the largest term."""
+    scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
+    share = float((got[1] == want[1]).float().mean())
+    gap = float((got[0] - want[0]).abs().max()) / max(scale, 1e-30)
+    return {"index_agreement": share, "sq_dist_gap_over_scale": gap,
+            "max_abs_err": float((got[0] - want[0]).abs().max()),
+            "ok": share >= 0.999 and gap <= K3_TOL}
+
+
+def _parent_knn_block(lib, a, b, a_sq, b_sq, k, off):
+    """The parent's kNN row block: its distance tile kernel, the self
+    mask and torch.topk, as its knn ran them."""
+    from irp_tpu_torch import _kernels
+
+    m, n = a.shape[0], b.shape[0]
+    ldo = -(-n // 4) * 4
+    out = torch.empty((m, ldo), dtype=torch.float32, device=a.device)
+    code = lib.irp_pairwise_dist(a.data_ptr(), b.data_ptr(), a_sq.data_ptr(),
+                                 b_sq.data_ptr(), out.data_ptr(), m, n,
+                                 a.shape[1], ldo,
+                                 _kernels.stream_handle(a.device))
+    _kernels.check(lib, code, "parent pairwise_dist")
+    d = out[:, :n]
+    rows = torch.arange(m, device=a.device)
+    d[rows, rows + off] = float("inf")
+    return torch.topk(d, k, dim=1, largest=False)
+
+
+def _k3_case(gen, name, m, n, d, k, parent) -> dict:
+    """pairwise_topk on one kNN row block: rows 0..m-1 of n points against
+    all of them, itself left out (self_offset 0), at width d padded to a
+    multiple of 4 as knn pads it."""
+    import torch.nn.functional as F
+
+    from irp_tpu_torch.ops.cuda_image import pairwise_topk, pairwise_topk_plain
+
     # the plain version is the f32 cuBLAS product: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    set_bytes = (m * d + n * d + m + n) * 4 + m * n * 4
+    dp = -(-d // 4) * 4
+    set_bytes = (n * d + n) * 4 + m * n * 4  # the parent's tile included
     sets = []
     for _ in range(n_sets(set_bytes)):
-        a = torch.randn(m, d, generator=gen).cuda()
         b = torch.randn(n, d, generator=gen).cuda()
-        sets.append((a, b, (a * a).sum(dim=1), (b * b).sum(dim=1)))
-    a, b, a_sq, b_sq = sets[0]
-    got = pairwise_dist(a, b, a_sq, b_sq)
-    want = pairwise_dist_plain(a, b, a_sq, b_sq)
+        b_sq = (b * b).sum(dim=1)
+        bp = F.pad(b, (0, dp - d)).contiguous()
+        sets.append((bp[:m], bp, b_sq[:m], b_sq, b[:m], b))
+    ap, bp, a_sq, b_sq, a, b = sets[0]
+    got = pairwise_topk(ap, bp, k, a_sq, b_sq, self_offset=0)
+    want = pairwise_topk_plain(ap, bp, k, a_sq, b_sq, self_offset=0)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # both sum |a|^2 + |b|^2 - 2ab in f32 in different orders: the
-    # difference is a few ulps of the largest term, not of the result
-    scale = float(a_sq.max() + b_sq.max())
-    bound_ms, bound_by = bound(set_bytes, 2 * m * n * d, PEAK_FP32_FLOPS)
+    cmp = _k3_compare(got, want, a, b)
+    n_bytes = (m * d + n * d + m + n) * 4 + m * k * 8
+    bound_ms, bound_by = bound(n_bytes, m * n * (2 * d + 1), PEAK_FP32_FLOPS)
+    parent_calls = None
+    if parent is not None:
+        lib = parent["pairwise_dist"]
+        pa, pw = _parent_knn_block(lib, a.contiguous(), b, a_sq, b_sq, k, 0)
+        cmp["parent_index_agreement"] = float((pw == got[1]).float().mean())
+        parent_calls = [lambda s=s: _parent_knn_block(
+            lib, s[4], s[5], s[2], s[3], k, 0) for s in sets]
+    timed = _turns([lambda s=s: pairwise_topk(s[0], s[1], k, s[2], s[3],
+                                              self_offset=0) for s in sets],
+                   parent_calls)
+    if "parent_ms" in timed:
+        timed["parent_path_ms"] = timed.pop("parent_ms")
     return {
-        "shape": f"({m},{d}) x ({n},{d}) f32 -> ({m},{n})",
-        "max_abs_err": err, "max_err_over_scale": err / scale,
-        "ms": gpu_ms([lambda s=s: pairwise_dist(*s) for s in sets]),
-        "plain_ms": gpu_ms([lambda s=s: pairwise_dist_plain(*s)
-                            for s in sets]),
-        "library_ms": gpu_ms([lambda s=s: torch.cdist(
-            s[0], s[1], compute_mode="use_mm_for_euclid_dist")
-            for s in sets]),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "ok": err <= 1e-5 * scale}
+        "case": name, "shape": f"({m},{d}) x ({n},{d}) f32, k={k}",
+        **cmp, **timed,
+        "plain_ms": gpu_ms([lambda s=s: pairwise_topk_plain(
+            s[0], s[1], k, s[2], s[3], self_offset=0) for s in sets]),
+        # two PyTorch calls: no single one computes a kNN
+        "library_ms": gpu_ms([lambda s=s: torch.topk(torch.cdist(
+            s[4], s[5], compute_mode="use_mm_for_euclid_dist"), k,
+            largest=False) for s in sets]),
+        "library": "torch.topk(torch.cdist(a, b), k, largest=False)",
+        "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _grid_points(n: int, d: int) -> np.ndarray:
+    """n points of an integer grid in d dimensions: exact f32 distances."""
+    side = int(np.ceil(n ** (1.0 / d)))
+    pts = np.stack(np.meshgrid(*[np.arange(side)] * d, indexing="ij"), -1)
+    return pts.reshape(-1, d)[:n].astype(np.float32)
+
+
+def _k3_edges(gen) -> list:
+    """pairwise_topk against its plain version at K3_EDGE_CASES; on an
+    integer grid (indices and distances equal); on a set with exact
+    duplicates (lower index first among equal distances); k = 129 raises."""
+    from irp_tpu_torch.ops.cuda_image import pairwise_topk, pairwise_topk_plain
+
+    cases = []
+    for m, n, d, k, off in K3_EDGE_CASES:
+        dp = -(-d // 4) * 4
+        b = torch.randn(n, dp, generator=gen)
+        b[:, d:] = 0
+        b = b.cuda()
+        a = (b[off:off + m].contiguous() if 0 <= off <= n - m else
+             torch.nn.functional.pad(torch.randn(m, d, generator=gen),
+                                     (0, dp - d)).cuda())
+        got = pairwise_topk(a, b, k, self_offset=off)
+        want = pairwise_topk_plain(a, b, k, self_offset=off)
+        cases.append({"case": [m, n, d, k, off],
+                      **_k3_compare(got, want, a, b)})
+    for m, n, d, k in ((200, 1000, 2, 15), (100, 700, 3, 75)):
+        g = torch.from_numpy(_grid_points(n, d))
+        g = torch.nn.functional.pad(g, (0, 4 - d)).cuda()
+        got = pairwise_topk(g[:m].contiguous(), g, k, self_offset=0)
+        want = pairwise_topk_plain(g[:m].contiguous(), g, k, self_offset=0)
+        equal = bool(torch.equal(got[1], want[1])
+                     and torch.equal(got[0], want[0]))
+        cases.append({"case": f"integer grid n={n} d={d} k={k}",
+                      "indices_and_distances_equal": equal, "ok": equal})
+    base = torch.randn(2000, 52, generator=gen)
+    dup = torch.cat([base, base[:300], base[:150]]).cuda()
+    got = pairwise_topk(dup, dup, 8, self_offset=0)
+    want = pairwise_topk_plain(dup, dup, 8, self_offset=0)
+    tie = got[0][:, 1:] == got[0][:, :-1]
+    lower_first = bool((got[1][:, 1:][tie] > got[1][:, :-1][tie]).all())
+    cases.append({"case": "2,450 points, 450 exact duplicates, k=8",
+                  "ties": int(tie.sum()), "lower_index_first": lower_first,
+                  **_k3_compare(got, want, dup, dup)})
+    cases[-1]["ok"] = cases[-1]["ok"] and lower_first and int(tie.sum()) > 0
+    try:
+        pairwise_topk(dup, dup, 129)
+        raised = False
+    except ValueError:
+        raised = True
+    cases.append({"case": "k=129 raises ValueError", "ok": raised})
+    return cases
 
 
 def _k4_case(gen, h, w, c, b=32) -> dict:
@@ -342,9 +517,48 @@ def _per_forward(cases, keys) -> dict:
     return out
 
 
-def phase_kernels(out: dict, seed: int) -> None:
+def load_parent(root: str) -> dict:
+    """The parent commit's K2 and K3 libraries, built by nvcc from the
+    sources of its checkout at ``root`` into build/probe/, for the A/B
+    turns of the kernels phase."""
+    import ctypes
+    import os
+
+    from irp_tpu_torch import _kernels
+
+    out_dir = os.path.join(os.path.dirname(_kernels.BUILD_DIR), "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    sigs = {"eval_preprocess": ("irp_eval_preprocess",
+                                _kernels.SIGNATURES["eval_preprocess"][
+                                    "irp_eval_preprocess"]),
+            "pairwise_dist": ("irp_pairwise_dist",
+                              (ctypes.c_int, [ctypes.c_void_p] * 5
+                               + [ctypes.c_int] * 4 + [ctypes.c_void_p]))}
+    procs = {}
+    for name in sigs:
+        lib = os.path.join(out_dir, f"libparent_{name}.so")
+        src = os.path.join(root, "irp_tpu_torch", "csrc", f"{name}.cu")
+        procs[name] = (lib, subprocess.Popen(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{log}")
+        lib = ctypes.CDLL(path)
+        fn, (restype, argtypes) = sigs[name]
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+        lib.irp_cuda_error_string.restype = ctypes.c_char_p
+        lib.irp_cuda_error_string.argtypes = [ctypes.c_int]
+        libs[name] = lib
+    return libs
+
+
+def phase_kernels(out: dict, seed: int, parent=None) -> None:
     gen = torch.Generator().manual_seed(seed)
-    k2 = _k2_entry(gen)
+    k2 = _k2_entry(gen, parent)
     emit({"phase": "kernels", "kernel": k2})
     k1_cases, k4_cases = [], []
     for name, h, w, c, m, per_fwd in BOTTLENECK_SHAPES:
@@ -386,24 +600,33 @@ def phase_kernels(out: dict, seed: int) -> None:
           **_per_forward(k4_cases, ("ms", "plain_ms", "bound_ms",
                                     "library_ms"))}
     k3_cases = []
-    for d in (50, 2):
-        case = _k3_case(gen, d)
-        emit({"phase": "kernels", "kernel": "pairwise_dist", "case": case})
+    for name, m, n, d, k in K3_SHAPES:
+        case = _k3_case(gen, name, m, n, d, k, parent)
+        emit({"phase": "kernels", "kernel": "pairwise_topk", "case": case})
         k3_cases.append(case)
+    k3_edges = _k3_edges(gen)
+    emit({"phase": "kernels", "kernel": "pairwise_topk",
+          "edge_cases": k3_edges})
     # the kernel's entry is one row block of the UMAP kNN (D = 50)
-    k3 = {"name": "pairwise_dist", "route": "cuda",
-          "source": "irp_tpu_torch/csrc/pairwise_dist.cu",
+    k3 = {"name": "pairwise_topk", "route": "cuda",
+          "source": "irp_tpu_torch/csrc/pairwise_topk.cu",
           "replaces": "irp_tpu/ops/pallas_image.py:123",
-          "tolerance": "max|kernel-plain| <= 1e-5 * max(|a_i|^2+|b_j|^2)",
-          "ok": all(cs["ok"] for cs in k3_cases), "cases": k3_cases,
+          "note": "fuses the top-k that both packages' knn apply to that "
+                  "kernel's output",
+          "tolerance": ">= 99.9% equal indices, squared distances within "
+                       "1e-5 * max(|a_i|^2+|b_j|^2); integer grid equal",
+          "ok": all(cs["ok"] for cs in k3_cases + k3_edges),
+          "cases": k3_cases, "edge_cases": k3_edges,
           "max_abs_err": max(cs["max_abs_err"] for cs in k3_cases),
           **{key: k3_cases[0][key] for key in (
               "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-              "bound_by")}}
+              "bound_by") if key in k3_cases[0]},
+          "parent_path_ms": k3_cases[0].get("parent_path_ms")}
     kernels = (k2, k1, k3, k4)
     for k in (k1, k3, k4):
-        emit({"phase": "kernels", "kernel": {key: v for key, v in k.items()
-                                             if key != "cases"}})
+        emit({"phase": "kernels", "kernel": {
+            key: v for key, v in k.items()
+            if key not in ("cases", "edge_cases")}})
     out["kernels"] = {k["name"]: k for k in kernels}
     bad = [k["name"] for k in kernels if not k["ok"]]
     if bad:
@@ -690,11 +913,11 @@ def _knn_against_plain(outliers, x: np.ndarray, k: int) -> dict:
     so that absolute form is the one that applies there."""
     from unittest import mock
 
-    from irp_tpu_torch.ops.cuda_image import pairwise_dist_plain
+    from irp_tpu_torch.ops.cuda_image import pairwise_topk_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     i_k, d_k = outliers.knn(x, k, device="cuda")
-    with mock.patch.object(outliers, "pairwise_dist", pairwise_dist_plain):
+    with mock.patch.object(outliers, "pairwise_topk", pairwise_topk_plain):
         i_p, d_p = outliers.knn(x, k, device="cuda")
     d_k, d_p = d_k.astype(np.float64), d_p.astype(np.float64)
     scale = 2.0 * float((np.asarray(x, np.float64) ** 2).sum(axis=1).max())
@@ -714,7 +937,7 @@ def phase_curation(out: dict, seed: int) -> None:
     from irp_tpu_torch.config import ModelConfig
     from irp_tpu_torch.data import outliers
     from irp_tpu_torch.data.pipeline import CachedDataset
-    from irp_tpu_torch.ops.cuda_image import eval_preprocess, pairwise_dist
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess, pairwise_topk
 
     t0 = time.perf_counter()
     images, labels, planted = _curation_images(seed, N_IMAGES)
@@ -730,7 +953,7 @@ def phase_curation(out: dict, seed: int) -> None:
     end = torch.cuda.Event(enable_timing=True)
     # the main path: counts from 0 just before, read just after
     eval_preprocess.launches = 0
-    pairwise_dist.launches = 0
+    pairwise_topk.launches = 0
     t0 = time.perf_counter()
     start.record()
     feats, labels_out, _ = outliers.extract_features(
@@ -746,7 +969,7 @@ def phase_curation(out: dict, seed: int) -> None:
                                                timings=timings)
     total_s = time.perf_counter() - t0
     launches = {"eval_preprocess": eval_preprocess.launches,
-                "pairwise_dist": pairwise_dist.launches}
+                "pairwise_topk": pairwise_topk.launches}
     out["launches"]["curation"] = launches
 
     n = N_IMAGES
@@ -792,7 +1015,7 @@ def phase_curation(out: dict, seed: int) -> None:
         "global_outliers_count": int(gmask.sum()) == want_global,
         "k2_once_per_batch": launches["eval_preprocess"]
         == math.ceil(n / FEATURE_BATCH),
-        "k3_once_per_knn_block": launches["pairwise_dist"] == want_k3,
+        "k3_once_per_knn_block": launches["pairwise_topk"] == want_k3,
     }
     emit({"phase": "curation", "images": n, "classes": N_CLASSES,
           "planted": int(planted.sum()),
@@ -803,7 +1026,7 @@ def phase_curation(out: dict, seed: int) -> None:
           "stage_s": timings, "total_s": total_s,
           "spectral_path": spectral_path, "launches": launches,
           "expected_launches": {"eval_preprocess": math.ceil(
-              n / FEATURE_BATCH), "pairwise_dist": want_k3},
+              n / FEATURE_BATCH), "pairwise_topk": want_k3},
           "features_rel_err_bf16_vs_f32": feat_rel,
           "knn_umap_vs_plain": knn_umap, "knn_lof_vs_plain": knn_lof,
           "class_outliers": int(cmask.sum()),
@@ -941,6 +1164,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of the parent commit: the kernels "
+                    "phase then times its K2 and its K3 path (distance "
+                    "tile, self mask, torch.topk) in turns with this "
+                    "tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -956,7 +1184,8 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build(out)
     if "kernels" in phases:
-        phase_kernels(out, args.seed)
+        parent = load_parent(args.parent) if args.parent else None
+        phase_kernels(out, args.seed, parent)
     if "serve" in phases:
         phase_serve(out, args.seed)
     if "curation" in phases:
@@ -987,6 +1216,10 @@ def main(argv=None) -> int:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
+            **({"parent_ms": entry["parent_ms"]} if "parent_ms" in entry
+               else {}),
+            **({"parent_path_ms": entry["parent_path_ms"]}
+               if entry.get("parent_path_ms") is not None else {}),
             **({"b256": b256[name]} if b256.get(name) else {})})
     print(out["smi"], flush=True)
     emit({"kernels": kernels})

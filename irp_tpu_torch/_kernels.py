@@ -26,7 +26,7 @@ PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
                          "irp_tpu_torch")
-SOURCES = ("eval_preprocess", "identity_bottleneck", "pairwise_dist",
+SOURCES = ("eval_preprocess", "identity_bottleneck", "pairwise_topk",
            "copy_floor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,8 +43,9 @@ SIGNATURES = {
     "identity_bottleneck": {
         "irp_identity_bottleneck": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     },
-    "pairwise_dist": {
-        "irp_pairwise_dist": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    "pairwise_topk": {
+        "irp_pairwise_topk_splits": (_I, [_I] * 4),
+        "irp_pairwise_topk": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     },
     "copy_floor": {
         "irp_relu_copy": (_I, [_P, _P, ctypes.c_longlong, _P]),

@@ -1,5 +1,5 @@
 // Eval preprocessing for Hopper (sm_90a): center crop + ImageNet
-// normalize + cast, in one pass over the batch.
+// normalize + cast, in one streaming pass over the batch.
 //
 // Replaces irp_tpu/ops/pallas_image.py::pallas_eval_preprocess (the TPU
 // kernel views each image as (H, W*C) rows with per-lane scale/bias rows).
@@ -7,18 +7,25 @@
 // Bound on this card: bytes.  Each output element costs one u8 read and
 // one 2-byte (bf16) or 4-byte (f32) write and two flops, so the pass sits
 // far below the H100's ~295 flop/byte ridge.  At B=64, 256->224 it reads
-// 9.6 MB of crop and writes 19.3 MB of bf16: ~8.6 us at 3.35 TB/s.
+// 9.6 MB of crop and writes 19.3 MB of bf16: 8.6 us at 3.35 TB/s.
 //
-// Design: one thread per group of 8 consecutive output elements of the
-// NHWC output (== NCHW in channels_last memory, the model's input), so
-// every store is one 16-byte (bf16) or two 16-byte (f32) vector stores
-// and a warp writes 512 contiguous bytes.  The crop starts on a pixel
-// boundary, so the channel of element e of a row is e % 3 and the
-// per-lane rows of the TPU kernel reduce to three per-channel constants.
-// The arithmetic is x*scale (rounded) + bias (rounded) with no FMA
-// contraction, the same two roundings as the TPU kernel and the plain
-// PyTorch version.  A scalar kernel serves rows whose length is not a
-// multiple of 8.
+// Design: the grid runs over output rows (image, crop row), several rows
+// a block, and a thread takes 16 consecutive elements of one row.  Its
+// (image, row, chunk) come from blockIdx/threadIdx with 32-bit
+// arithmetic.  At the cache geometry (256x256 -> 224) the source row
+// pitch (768 bytes), the crop offset (48 bytes) and the output row (672
+// elements) are multiples of 16, so the thread's source is one 16-byte
+// load and its output two 16-byte bf16 stores (four for f32): loads skip
+// L1 (ld.global.nc.L1::no_allocate) and stores stream (st.global.cs), as
+// neither side is read again by this pass.  The crop starts on a pixel
+// boundary, so the channel of element e of a row is e % 3 and the TPU
+// kernel's per-lane rows reduce to three per-channel constants; a thread
+// picks its 16 scale/bias pairs from them once.  The arithmetic is
+// x*scale (rounded) + bias (rounded) with no FMA contraction, the same two
+// roundings as the TPU kernel and the plain PyTorch version.  Where the
+// pitch, the crop offset or the output row is not a multiple of 16 bytes
+// (W = 250, an odd offset, out_size = 7), the same kernel reads and
+// writes the thread's elements one at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,25 +33,49 @@
 
 namespace {
 
+constexpr int kVec = 16;  // output elements a thread
+constexpr int kMaxThreads = 256;
+
 struct Norm {
   float scale[3];
   float bias[3];
 };
 
-__device__ __forceinline__ float normalize(uint8_t v, int ch, const Norm& n) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(v), n.scale[ch]), n.bias[ch]);
+__device__ __forceinline__ float normalize(uint32_t v, float scale,
+                                           float bias) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(v), scale), bias);
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
-  __align__(16) __nv_bfloat16 packed[8];
+__device__ __forceinline__ uint4 load_stream(const uint8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat16 l = __float2bfloat16_rn(lo);
+  const __nv_bfloat16 h = __float2bfloat16_rn(hi);
+  return static_cast<uint32_t>(__bfloat16_as_ushort(l)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(h)) << 16);
+}
+
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* v) {
+  uint4* p = reinterpret_cast<uint4*>(dst);
+  __stcs(p, make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                       pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])));
+  __stcs(p + 1, make_uint4(pack_bf16(v[8], v[9]), pack_bf16(v[10], v[11]),
+                           pack_bf16(v[12], v[13]),
+                           pack_bf16(v[14], v[15])));
+}
+
+__device__ __forceinline__ void store16(float* dst, const float* v) {
+  float4* p = reinterpret_cast<float4*>(dst);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) packed[i] = __float2bfloat16_rn(v[i]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(packed);
-}
-
-__device__ __forceinline__ void store8(float* dst, const float* v) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  for (int q = 0; q < 4; ++q)
+    __stcs(p + q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                              v[4 * q + 3]));
 }
 
 __device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) {
@@ -53,43 +84,50 @@ __device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) {
 
 __device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
 
-// out row r = (image b, crop row y); a row holds out_size*3 elements.
+// A block is rows_per_block output rows x chunks_per_block chunks of 16
+// elements; blockIdx.y picks the chunks of rows wider than one block.
 template <typename OutT>
-__global__ void eval_preprocess_vec8(const uint8_t* __restrict__ in,
-                                     OutT* __restrict__ out, int h, int w,
-                                     int out_size, int top, int left,
-                                     Norm norm, long long n_groups) {
-  const long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (g >= n_groups) return;
+__global__ void __launch_bounds__(kMaxThreads)
+eval_preprocess_kernel(const uint8_t* __restrict__ in, OutT* __restrict__ out,
+                       int h, int w, int out_size, int top, int left,
+                       int n_rows, int chunks_per_block, int rows_per_block,
+                       bool vec, Norm norm) {
+  const int r_local = threadIdx.x / chunks_per_block;
+  const int row = blockIdx.x * rows_per_block + r_local;
   const int row_elems = out_size * 3;
-  const long long e0 = g * 8;
-  const long long row = e0 / row_elems;
-  const int col = static_cast<int>(e0 - row * row_elems);
-  const long long b = row / out_size;
-  const int y = static_cast<int>(row - b * out_size);
-  const uint8_t* src = in + ((b * h + top + y) * w + left) * 3 + col;
-  float v[8];
+  const int chunk = blockIdx.y * chunks_per_block +
+                    (threadIdx.x - r_local * chunks_per_block);
+  const int col = chunk * kVec;
+  if (row >= n_rows || col >= row_elems) return;
+  const int img = row / out_size;
+  const int y = row - img * out_size;
+  const uint8_t* src =
+      in + ((static_cast<long long>(img) * h + top + y) * w + left) * 3 + col;
+  OutT* dst = out + static_cast<long long>(row) * row_elems + col;
+  // channel of element col + i is (col + i) % 3, and 16 % 3 == 1
+  const int c0 = chunk % 3;
+  float scale[kVec], bias[kVec];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = normalize(src[i], (col + i) % 3, norm);
-  store8(out + e0, v);
-}
-
-template <typename OutT>
-__global__ void eval_preprocess_scalar(const uint8_t* __restrict__ in,
-                                       OutT* __restrict__ out, int h, int w,
-                                       int out_size, int top, int left,
-                                       Norm norm, long long n_elems) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (e >= n_elems) return;
-  const int row_elems = out_size * 3;
-  const long long row = e / row_elems;
-  const int col = static_cast<int>(e - row * row_elems);
-  const long long b = row / out_size;
-  const int y = static_cast<int>(row - b * out_size);
-  const uint8_t* src = in + ((b * h + top + y) * w + left) * 3 + col;
-  store1(out + e, normalize(*src, col % 3, norm));
+  for (int i = 0; i < kVec; ++i) {
+    const int c = (c0 + i) % 3;
+    scale[i] = c == 0 ? norm.scale[0] : c == 1 ? norm.scale[1] : norm.scale[2];
+    bias[i] = c == 0 ? norm.bias[0] : c == 1 ? norm.bias[1] : norm.bias[2];
+  }
+  if (vec) {
+    const uint4 raw = load_stream(src);
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+    float v[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      v[i] = normalize((words[i / 4] >> (8 * (i % 4))) & 0xffu, scale[i],
+                       bias[i]);
+    store16(dst, v);
+  } else {
+    const int n_el = min(kVec, row_elems - col);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < n_el) store1(dst + i, normalize(src[i], scale[i], bias[i]));
+  }
 }
 
 template <typename OutT>
@@ -102,24 +140,26 @@ int launch(const void* in, void* out, int batch, int h, int w, int out_size,
   }
   const int top = (h - out_size) / 2;
   const int left = (w - out_size) / 2;
-  const long long n_elems =
-      static_cast<long long>(batch) * out_size * out_size * 3;
-  const int threads = 256;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* src = static_cast<const uint8_t*>(in);
-  OutT* dst = static_cast<OutT*>(out);
-  if ((out_size * 3) % 8 == 0) {
-    const long long n_groups = n_elems / 8;
-    const long long blocks = (n_groups + threads - 1) / threads;
-    eval_preprocess_vec8<OutT><<<static_cast<unsigned>(blocks), threads, 0,
-                                 s>>>(src, dst, h, w, out_size, top, left,
-                                      norm, n_groups);
-  } else {
-    const long long blocks = (n_elems + threads - 1) / threads;
-    eval_preprocess_scalar<OutT><<<static_cast<unsigned>(blocks), threads, 0,
-                                   s>>>(src, dst, h, w, out_size, top, left,
-                                        norm, n_elems);
-  }
+  const long long n_rows = static_cast<long long>(batch) * out_size;
+  const long long row_bytes = static_cast<long long>(out_size) * 3;
+  if (n_rows > 0x7fffffffLL ||
+      static_cast<long long>(batch) * h * w * 3 > (1LL << 40))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = static_cast<int>((row_bytes + kVec - 1) / kVec);
+  const int chunks_per_block = chunks < kMaxThreads ? chunks : kMaxThreads;
+  const int rows_per_block = kMaxThreads / chunks_per_block;
+  const bool vec =
+      (w * 3) % 16 == 0 && (left * 3) % 16 == 0 && row_bytes % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid(
+      static_cast<unsigned>((n_rows + rows_per_block - 1) / rows_per_block),
+      (chunks + chunks_per_block - 1) / chunks_per_block);
+  eval_preprocess_kernel<OutT><<<grid, rows_per_block * chunks_per_block, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<OutT*>(out), h, w,
+      out_size, top, left, static_cast<int>(n_rows), chunks_per_block,
+      rows_per_block, vec, norm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -133,6 +173,8 @@ extern "C" {
 int irp_eval_preprocess(const void* images, void* out, int batch, int h,
                         int w, int out_size, int out_dtype,
                         const float* scale, const float* bias, void* stream) {
+  if (batch <= 0 || out_size <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (out_dtype == 0)
     return launch<__nv_bfloat16>(images, out, batch, h, w, out_size, scale,
                                  bias, stream);

@@ -6,8 +6,8 @@ JAX package's ``data/outliers.py``).
   dataset is uploaded once when it fits in free device memory, else
   streamed batch by batch.
 - **PCA**: 50 components via ``torch.linalg.svd`` on the device.
-- **Supervised UMAP**: kNN through the pairwise-distance kernel
-  (``ops/cuda_image.py::pairwise_dist``) and ``torch.topk``; the fuzzy
+- **Supervised UMAP**: kNN through the fused distance + top-k kernel
+  (``ops/cuda_image.py::pairwise_topk``); the fuzzy
   simplicial set, its categorical label intersection and the smooth-kNN
   calibration on host numpy/scipy (the same code as the JAX package);
   spectral init with ``torch.lobpcg`` on the sparse graph; the
@@ -38,7 +38,7 @@ import torch
 from irp_tpu_torch._kernels import resolve_device
 from irp_tpu_torch.config import ModelConfig
 from irp_tpu_torch.data.pipeline import CachedDataset
-from irp_tpu_torch.ops.cuda_image import pairwise_dist
+from irp_tpu_torch.ops.cuda_image import pairwise_topk
 
 # the device-resident feature path uploads the dataset only when it takes
 # at most this share of the free device memory (the rest holds the model,
@@ -152,7 +152,7 @@ def pca(features: np.ndarray, n_components: int = 50, device=None):
 
 
 # ---------------------------------------------------------------------------
-# kNN (blocked pairwise distances through the kernel)
+# kNN (blocked fused distance + top-k through the kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -160,28 +160,30 @@ def knn(x: np.ndarray, k: int, block: int = 1024, device=None):
     """Exact kNN (excluding self): returns (indices (N,k) int32, dists
     (N,k) float32).
 
-    Each block of ``block`` rows takes its squared distances to every
-    point from :func:`pairwise_dist` (the kernel on the card), masks
-    itself, and keeps the k smallest with ``torch.topk``.  Equal
-    distances may come out in either order.
+    Each block of ``block`` rows takes its k nearest points, itself left
+    out, from :func:`pairwise_topk` (the fused distance + top-k kernel on
+    the card).  Equal distances come out lower index first, as the JAX
+    package's ``lax.top_k`` orders them.
     """
     dev = resolve_device(device)
     # row blocks must be contiguous for the kernel, whatever x's order
     xd = torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
-    n = xd.shape[0]
+    n, d = xd.shape
     if n < 2:
         return (np.zeros((n, 0), np.int32), np.zeros((n, 0), np.float32))
     k = min(k, n - 1)  # no more neighbours than other points
     sq = (xd * xd).sum(dim=1)
+    if dev.type == "cuda" and d % 4:
+        # the kernel reads 16-byte rows: pad once with zero columns, which
+        # change no distance
+        xd = torch.nn.functional.pad(xd, (0, 4 - d % 4))
     idxs = torch.empty((n, k), dtype=torch.int32, device=dev)
     dists = torch.empty((n, k), dtype=torch.float32, device=dev)
     for start in range(0, n, block):
         stop = min(start + block, n)
-        rows = torch.arange(start, stop, device=dev)
-        d = pairwise_dist(xd[start:stop], xd, sq[start:stop], sq)
-        d[rows - start, rows] = float("inf")  # no self
-        top, idx = torch.topk(d, k, dim=1, largest=False)
-        idxs[start:stop] = idx.to(torch.int32)
+        top, idx = pairwise_topk(xd[start:stop], xd, k, sq[start:stop], sq,
+                                 self_offset=start)
+        idxs[start:stop] = idx
         dists[start:stop] = top.clamp_min(0.0).sqrt()
     return idxs.cpu().numpy(), dists.cpu().numpy()
 

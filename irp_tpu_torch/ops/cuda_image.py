@@ -6,8 +6,10 @@ Counterpart of the JAX package's ``ops/pallas_image.py``:
   normalize, kernel ``csrc/eval_preprocess.cu``.  The output is NHWC,
   which is the model's NCHW input in ``channels_last`` memory:
   ``out.permute(0, 3, 1, 2)`` is that input, with no copy.
-- :func:`pairwise_dist` (``pallas_pairwise_dist``): squared Euclidean
-  distances for the curation kNN, kernel ``csrc/pairwise_dist.cu``.
+- :func:`pairwise_topk` (``pallas_pairwise_dist`` and the top-k that the
+  curation kNN applies to its output): the k nearest columns of each
+  row, kernel ``csrc/pairwise_topk.cu``.  :func:`pairwise_dist_plain` is
+  the distance formula both it and the TPU kernel compute.
 """
 
 from __future__ import annotations
@@ -144,41 +146,100 @@ def pairwise_dist_plain(a: torch.Tensor, b: torch.Tensor | None = None,
     return (a_sq[:, None] + b_sq[None, :] - 2.0 * (a @ b.T)).clamp_min(0.0)
 
 
-def pairwise_dist(a: torch.Tensor, b: torch.Tensor | None = None,
+# the kernel's limits on the card: its per-row lists and its resident rows
+# of a live in shared memory
+TOPK_MAX_K = 128
+TOPK_MAX_D = 128
+
+
+def _topk_args(a, b, k, a_sq, b_sq, self_offset):
+    """Validated (b, a_sq, b_sq) for a top-k call, and k checked against
+    the columns a row has once its own is left out."""
+    b, a_sq, b_sq = _pairwise_args(a, b, a_sq, b_sq)
+    n = b.shape[0]
+    limit = n - 1 if self_offset >= 0 else n
+    if not isinstance(k, (int, np.integer)) or k < 1 or k > limit:
+        raise ValueError(f"k must be an int in [1, {limit}] for {n} columns"
+                         f"{' with self excluded' if self_offset >= 0 else ''}"
+                         f", got {k!r}")
+    return b, a_sq, b_sq
+
+
+def pairwise_topk_plain(a: torch.Tensor, b: torch.Tensor | None, k: int,
+                        a_sq: torch.Tensor | None = None,
+                        b_sq: torch.Tensor | None = None,
+                        self_offset: int = -1):
+    """Plain PyTorch version of the kernel: :func:`pairwise_dist_plain`,
+    column ``i + self_offset`` of row i set to +inf when ``self_offset >=
+    0`` (as the JAX knn does to its own column), then the k smallest of
+    each row in ascending order of (distance, index), by a stable sort.
+    Returns (squared distances (M, k) float32, indices (M, k) int32)."""
+    b, a_sq, b_sq = _topk_args(a, b, k, a_sq, b_sq, self_offset)
+    d = pairwise_dist_plain(a, b, a_sq, b_sq)
+    if self_offset >= 0:
+        rows = torch.arange(max(0, min(a.shape[0], b.shape[0] - self_offset)),
+                            device=a.device)
+        d[rows, rows + self_offset] = float("inf")
+    d, idx = torch.sort(d, dim=1, stable=True)
+    return d[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+
+
+def pairwise_topk(a: torch.Tensor, b: torch.Tensor | None, k: int,
                   a_sq: torch.Tensor | None = None,
-                  b_sq: torch.Tensor | None = None) -> torch.Tensor:
-    """Squared Euclidean distances ``max(|a_i|^2 + |b_j|^2 - 2 a_i.b_j, 0)``:
-    a (M, D) and b (N, D) float32 (b defaults to a) -> (M, N) float32.
+                  b_sq: torch.Tensor | None = None, self_offset: int = -1):
+    """The k nearest columns of every row: a (M, D) and b (N, D) float32
+    (b defaults to a) -> (squared distances (M, k) float32, indices (M, k)
+    int32), each row in ascending order of (distance, index), distances
+    ``max(|a_i|^2 + |b_j|^2 - 2 a_i.b_j, 0)``.  Column ``i + self_offset``
+    of row i is left out when ``self_offset >= 0``; k is at most the
+    columns a row has left.
 
     ``a_sq`` / ``b_sq`` are the rows' squared norms, computed here when
-    not given.  A CPU tensor goes through :func:`pairwise_dist_plain`; a
+    not given.  A CPU tensor goes through :func:`pairwise_topk_plain`; a
     CUDA tensor launches the kernel on the current stream (contiguous
-    inputs) or raises.  The kernel's result is a view of an (M, N')
-    buffer whose row stride N' rounds N up to a multiple of 4, so every
-    row starts 16-byte aligned.
+    inputs, k <= TOPK_MAX_K, D <= TOPK_MAX_D) or raises.  The kernel reads
+    rows of a width that is a multiple of 4; other widths are padded here
+    with zero columns, which change no distance (``knn`` pads once).
     """
     if a.device.type == "cpu":
-        return pairwise_dist_plain(a, b, a_sq, b_sq)
+        return pairwise_topk_plain(a, b, k, a_sq, b_sq, self_offset)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    b, a_sq, b_sq = _pairwise_args(a, b, a_sq, b_sq)
+    b, a_sq, b_sq = _topk_args(a, b, k, a_sq, b_sq, self_offset)
+    if k > TOPK_MAX_K:
+        raise ValueError(f"k = {k} exceeds the kernel's cap of {TOPK_MAX_K} "
+                         "neighbours a row on the card")
     for name, t in (("a", a), ("b", b), ("a_sq", a_sq), ("b_sq", b_sq)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     m, d = a.shape
     n = b.shape[0]
-    ldo = -(-n // 4) * 4
-    out = torch.empty((m, ldo), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
-        return out[:, :n]
-    lib = _kernels.load("pairwise_dist")
+    dp = -(-max(d, 1) // 4) * 4
+    if dp > TOPK_MAX_D:
+        raise ValueError(f"width {d} exceeds the kernel's cap of "
+                         f"{TOPK_MAX_D} on the card")
+    if dp != d:
+        a = torch.nn.functional.pad(a, (0, dp - d))
+        b = torch.nn.functional.pad(b, (0, dp - d))
+    out_d = torch.empty((m, k), dtype=torch.float32, device=a.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=a.device)
+    if m == 0:
+        return out_d, out_i
+    lib = _kernels.load("pairwise_topk")
     with torch.cuda.device(a.device):
-        code = lib.irp_pairwise_dist(
+        splits = lib.irp_pairwise_topk_splits(m, n, dp, k)
+        if splits < 1:
+            _kernels.check(lib, -splits, "pairwise_topk")
+        part = torch.empty((splits, m, k), dtype=torch.int64, device=a.device)
+        bound = torch.empty((m, k), dtype=torch.int32, device=a.device)
+        code = lib.irp_pairwise_topk(
             a.data_ptr(), b.data_ptr(), a_sq.data_ptr(), b_sq.data_ptr(),
-            out.data_ptr(), m, n, d, ldo, _kernels.stream_handle(a.device))
-    _kernels.check(lib, code, "pairwise_dist")
-    pairwise_dist.launches += 1
-    return out[:, :n]
+            part.data_ptr(), bound.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), m, n, dp, k, self_offset, splits,
+            _kernels.stream_handle(a.device))
+    _kernels.check(lib, code, "pairwise_topk")
+    pairwise_topk.launches += 1
+    return out_d, out_i
 
 
-pairwise_dist.launches = 0
+pairwise_topk.launches = 0

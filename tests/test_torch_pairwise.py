@@ -1,8 +1,9 @@
-"""Port parity: the pairwise-distance kernel's wrapper
-(irp_tpu_torch/ops/cuda_image.py::pairwise_dist, its plain version on the
-CPU) against the JAX package's Pallas kernel in interpret mode, and the
-port's kNN over it (irp_tpu_torch/data/outliers.py::knn) against the JAX
-package's knn.
+"""Port parity: the distance formula of the fused distance + top-k kernel
+(irp_tpu_torch/ops/cuda_image.py::pairwise_dist_plain) against the JAX
+package's Pallas kernel in interpret mode; the kernel's wrapper
+(pairwise_topk, its plain version on the CPU); and the port's kNN over it
+(irp_tpu_torch/data/outliers.py::knn) against the JAX package's knn,
+ties included.
 
 Inputs are numpy arrays made from a seed and handed to both packages.
 """
@@ -42,8 +43,8 @@ def test_plain_version_matches_pallas_kernel(m, n, d, block_m):
     want = np.asarray(pallas_pairwise_dist(
         jnp.asarray(a), None if b is None else jnp.asarray(b),
         block_m=block_m, interpret=True))
-    got = cuda_image.pairwise_dist(torch.from_numpy(a),
-                                   None if b is None else torch.from_numpy(b))
+    got = cuda_image.pairwise_dist_plain(
+        torch.from_numpy(a), None if b is None else torch.from_numpy(b))
     assert got.shape == want.shape == (m, m if n is None else n)
     assert got.dtype == torch.float32
     # the same f32 formula with different summation orders: a few ulps of
@@ -57,29 +58,51 @@ def test_norms_passed_in_are_used():
     a, b = _points(1, 20, 5), _points(2, 30, 5)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     a_sq, b_sq = (ta * ta).sum(1), (tb * tb).sum(1)
-    want = cuda_image.pairwise_dist(ta, tb)
-    got = cuda_image.pairwise_dist(ta, tb, a_sq, b_sq)
-    assert torch.equal(got, want)
-    shifted = cuda_image.pairwise_dist(ta, tb, a_sq + 1.0, b_sq)
-    assert torch.allclose(shifted, want + 1.0, atol=1e-5)
+    want_d, want_i = cuda_image.pairwise_topk(ta, tb, 7)
+    got_d, got_i = cuda_image.pairwise_topk(ta, tb, 7, a_sq, b_sq)
+    assert torch.equal(got_d, want_d) and torch.equal(got_i, want_i)
+    # a shift of every |a_i|^2 moves every distance and no order
+    shifted_d, shifted_i = cuda_image.pairwise_topk(ta, tb, 7, a_sq + 1.0,
+                                                    b_sq)
+    assert torch.equal(shifted_i, want_i)
+    assert torch.allclose(shifted_d, want_d + 1.0, atol=1e-5)
 
 
 def test_cpu_tensor_runs_plain_version_without_launch():
     a = torch.from_numpy(_points(3, 10, 4))
-    before = cuda_image.pairwise_dist.launches
-    assert torch.equal(cuda_image.pairwise_dist(a),
-                       cuda_image.pairwise_dist_plain(a))
-    assert cuda_image.pairwise_dist.launches == before
+    before = cuda_image.pairwise_topk.launches
+    got = cuda_image.pairwise_topk(a, None, 3, self_offset=0)
+    want = cuda_image.pairwise_topk_plain(a, None, 3, self_offset=0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert cuda_image.pairwise_topk.launches == before
 
 
-@pytest.mark.parametrize("a,b,match", [
-    (torch.zeros(4, 3, dtype=torch.float64), None, "float32"),
-    (torch.zeros(4), None, "2-D"),
-    (torch.zeros(4, 3), torch.zeros(5, 2), "widths differ"),
+@pytest.mark.parametrize("a,b,k,match", [
+    (torch.zeros(4, 3, dtype=torch.float64), None, 2, "float32"),
+    (torch.zeros(4), None, 2, "2-D"),
+    (torch.zeros(4, 3), torch.zeros(5, 2), 2, "widths differ"),
+    (torch.zeros(4, 3), None, 0, "k must be"),
 ])
-def test_rejects_malformed_input(a, b, match):
+def test_rejects_malformed_input(a, b, k, match):
     with pytest.raises(ValueError, match=match):
-        cuda_image.pairwise_dist(a, b)
+        cuda_image.pairwise_topk(a, b, k)
+
+
+def test_self_offset_excludes_exactly_one_column_a_row():
+    """Rows 10..29 of x against all 40 points with self_offset=10: row i
+    keeps every column but i + 10; with no offset it keeps its own."""
+    x = torch.from_numpy(_points(8, 40, 3))
+    d, idx = cuda_image.pairwise_topk(x[10:30], x, 39, self_offset=10)
+    for i in range(20):
+        assert sorted(idx[i].tolist()) == [j for j in range(40)
+                                           if j != i + 10]
+    assert (d[:, 1:] >= d[:, :-1]).all()
+    # no offset: a row's nearest point is itself, at the f32 residue of
+    # |a|^2 + |a|^2 - 2 a.a
+    d, idx = cuda_image.pairwise_topk(x[10:30], x, 1)
+    assert idx[:, 0].tolist() == list(range(10, 30))
+    assert float(d.max()) <= 1e-5 * _scale(x.numpy(), x.numpy())
 
 
 @pytest.mark.parametrize("n,d,k,block", [
@@ -108,11 +131,28 @@ def test_knn_fewer_than_two_points(n):
     assert i_got.dtype == np.int32 and d_got.dtype == np.float32
 
 
+def test_knn_integer_grid_equals_jax_index_for_index():
+    """The first 200 points of a 20 x 20 integer grid: every distance is
+    exact in f32 and most of them tie, so a top-k that orders ties in any
+    other way than lower index first picks other neighbours."""
+    grid = np.stack(np.meshgrid(np.arange(20), np.arange(20), indexing="ij"),
+                    -1).reshape(-1, 2).astype(np.float32)[:200]
+    i_want, d_want = jax_outliers.knn(grid, 15, block=64)
+    i_got, d_got = outliers.knn(grid, 15, block=64, device="cpu")
+    np.testing.assert_array_equal(d_got, d_want)
+    np.testing.assert_array_equal(i_got, i_want)
+
+
 def test_knn_ties_at_zero_agree_tie_aware():
-    """Duplicated points tie at distance 0 (the kernel clamps at 0 before
-    the top-k), and a tie may fill the last slot with either point: the
-    sorted distances match JAX, and each returned index is a point at its
-    reported distance (no self)."""
+    """Duplicated points: each of the 10 duplicates ties its twin at
+    distance 0, and every other row sees the twins at equal distances.
+    Among neighbours whose reported distances are equal, the lower index
+    comes first; where JAX's distances tie exactly too, the indices are
+    JAX's.  The two f32 formulas differ in one place: JAX selects before
+    it clamps, so a duplicate's residue |a|^2 + |b|^2 - 2 a.b may be
+    negative and sort ahead of exact zeros, while the port clamps at 0
+    first (as the kernel does).  Here each point has at most one
+    duplicate, so the two orders agree."""
     base = _points(5, 40, 3)
     x = np.concatenate([base, base[:10]])  # 10 exact duplicates
     i_want, d_want = jax_outliers.knn(x, 6)
@@ -124,6 +164,15 @@ def test_knn_ties_at_zero_agree_tie_aware():
     assert np.abs(d_got.astype(np.float64) ** 2 - true_sq).max() \
         <= 1e-5 * _scale(x, x)
     assert not (i_got == np.arange(len(x))[:, None]).any()
+    tie = d_got[:, 1:] == d_got[:, :-1]
+    assert tie.any()
+    assert (i_got[:, 1:][tie] > i_got[:, :-1][tie]).all()
+    jax_tie = d_want[:, 1:] == d_want[:, :-1]
+    assert jax_tie.any()
+    np.testing.assert_array_equal(i_got[:, 1:][jax_tie],
+                                  i_want[:, 1:][jax_tie])
+    np.testing.assert_array_equal(i_got[:, :-1][jax_tie],
+                                  i_want[:, :-1][jax_tie])
 
 
 def test_knn_hands_contiguous_row_blocks_to_the_kernel(monkeypatch):
@@ -131,31 +180,75 @@ def test_knn_hands_contiguous_row_blocks_to_the_kernel(monkeypatch):
     still reaches the kernel as contiguous row blocks, which it needs."""
     seen = []
 
-    def checked(a, b, a_sq, b_sq):
+    def checked(a, b, k, a_sq, b_sq, self_offset):
         seen.append(a.is_contiguous() and b.is_contiguous())
-        return cuda_image.pairwise_dist_plain(a, b, a_sq, b_sq)
+        return cuda_image.pairwise_topk_plain(a, b, k, a_sq, b_sq,
+                                              self_offset)
 
     x = np.asfortranarray(_points(7, 50, 2))
     i_want, _ = outliers.knn(np.ascontiguousarray(x), 4, block=16,
                              device="cpu")
-    monkeypatch.setattr(outliers, "pairwise_dist", checked)
+    monkeypatch.setattr(outliers, "pairwise_topk", checked)
     i_got, _ = outliers.knn(x, 4, block=16, device="cpu")
     assert seen == [True] * 4
     np.testing.assert_array_equal(i_got, i_want)
 
 
+def _grid(n, d):
+    """n points of an integer grid in d dimensions: exact f32 distances."""
+    side = int(np.ceil(n ** (1.0 / d)))
+    pts = np.stack(np.meshgrid(*[np.arange(side)] * d, indexing="ij"), -1)
+    return pts.reshape(-1, d)[:n].astype(np.float32)
+
+
+def _agree(got, want, a, b):
+    """Share of equal indices, and the largest squared-distance gap over
+    max(|a_i|^2 + |b_j|^2)."""
+    scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
+    return (float((got[1] == want[1]).float().mean()),
+            float((got[0] - want[0]).abs().max()) / max(scale, 1e-30))
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
+    """The kernel against its plain version (cuBLAS f32, no TF32) at the
+    kNN's three shapes and the edges of its tiling: k = 1 and 128, M not
+    a multiple of the row tile, N below one column tile, splits shorter
+    than k, self_offset -1 and > 0.  >= 99.9% equal indices and squared
+    distances within 1e-5 * max(|a_i|^2 + |b_j|^2); on an integer grid
+    (exact distances) the indices are equal; among exact duplicates the
+    lower index comes first; k = 129 raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for m, n, d in ((1024, 26_179, 50), (1024, 26_179, 2), (5, 7, 70),
-                    (129, 130, 33)):
-        a = torch.from_numpy(_points(m, m, d, 3.0)).cuda()
-        b = torch.from_numpy(_points(n, n, d, 3.0)).cuda()
-        before = cuda_image.pairwise_dist.launches
-        got = cuda_image.pairwise_dist(a, b)
-        want = cuda_image.pairwise_dist_plain(a, b)
-        assert cuda_image.pairwise_dist.launches == before + 1
-        scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
-        assert float((got - want).abs().max()) <= 1e-5 * scale
+    topk, plain = cuda_image.pairwise_topk, cuda_image.pairwise_topk_plain
+    # (m, n, d, k, self_offset); a is b[off:off + m] where that fits,
+    # else points of its own
+    cases = [(1024, 26_179, 50, 15, 0), (1024, 26_179, 2, 75, 1024),
+             (570, 2618, 2, 30, 2048), (200, 300, 50, 1, -1),
+             (129, 50, 3, 20, -1), (129, 150, 3, 20, 60),
+             (65, 2618, 2, 128, 0), (33, 5000, 64, 128, -1),
+             (300, 1000, 128, 32, 100)]
+    for m, n, d, k, off in cases:
+        b = torch.from_numpy(_points(n + d, n, d, 3.0)).cuda()
+        a = b[off:off + m].contiguous() if 0 <= off <= n - m else \
+            torch.from_numpy(_points(m + d, m, d, 3.0)).cuda()
+        before = topk.launches
+        got = topk(a, b, k, self_offset=off)
+        want = plain(a, b, k, self_offset=off)
+        assert topk.launches == before + 1
+        share, gap = _agree(got, want, a, b)
+        assert share >= 0.999 and gap <= 1e-5, (m, n, d, k, off)
+    for m, n, d, k in ((200, 1000, 2, 15), (100, 700, 3, 75)):
+        g = torch.from_numpy(_grid(n, d)).cuda()
+        got = topk(g[:m].contiguous(), g, k, self_offset=0)
+        want = plain(g[:m].contiguous(), g, k, self_offset=0)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    base = _points(9, 2000, 52)
+    dup = torch.from_numpy(np.concatenate([base, base[:300], base[:150]])
+                           ).cuda()
+    got = topk(dup, dup, 8, self_offset=0)
+    tie = got[0][:, 1:] == got[0][:, :-1]
+    assert bool((got[1][:, 1:][tie] > got[1][:, :-1][tie]).all())
+    with pytest.raises(ValueError, match="128"):
+        topk(a, b, 129)
