@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, curation and benchmark paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's serving, curation, benchmark and training
+paths once on one NVIDIA GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
+  python3 chip_smoke.py --phases device,build,train
   python3 chip_smoke.py --phases device,build,profile
 
 Phases, each printing one JSON line:
@@ -72,9 +73,23 @@ Phases, each printing one JSON line:
               from the tool's run within 2^-6 at each shape, and the
               copy floor bit for bit against clamp_min(0) on one B=256
               input per shape.
-7. profile  — only when named in --phases: torch.profiler over batches
-              of 64 through predict_probs; device time by kernel group and
-              the device's idle share.
+7. train    — fit, the fine-tune, at ResNet50/224 bf16 with K1 on
+              ('auto'), medium augmentation, adam on OneCycle with class
+              weights, batch 32, 2 epochs of 32 steps on 2,048 synthetic
+              class-pattern images, eval on 512 each epoch.  Gates: finite
+              losses and epoch 2's mean loss below epoch 1's; K1 launched
+              10 times per train and eval forward, K2 once per eval batch;
+              one step from the fit's weights and the same draws with K1
+              against cuDNN within twice the bf16 step's measured drift
+              from the f32 step (K1_STEP_*_TOL); the f32 'highest' step on
+              the card against the CPU's (CARD_CPU_*_TOL).  Prints train
+              images/s at batch 32 and 256 with K1 on and off.
+8. profile  — only when named in --phases: torch.profiler over batches
+              of 64 through predict_probs (device time by kernel group,
+              the device's idle share), and one train step at B=256 and
+              at B=32 split by CUDA events into augmentation, frozen
+              forward (K1), layer4 forward, head and loss, backward and
+              optimizer, with its own trace.
 
 Then the card's nvidia-smi line, one JSON object with every kernel's
 numbers (launches summed over the paths that ran it; K1's and K4's
@@ -108,7 +123,8 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
                                                    n_sets)
 
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
-PHASES = ("device", "build", "kernels", "serve", "curation", "bench")
+PHASES = ("device", "build", "kernels", "serve", "curation", "bench",
+          "train")
 EXTRA_PHASES = ("profile",)  # run only when named in --phases
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -858,29 +874,30 @@ def phase_serve(out: dict, seed: int) -> None:
         raise RuntimeError(f"serve checks failed: {failed}")
 
 
-def _curation_images(seed: int, n: int):
-    """n synthetic 256x256 uint8 images made on the card: N_CLASSES smooth
-    base patterns (8x8 noise upsampled), each image its class's pattern
+def _curation_images(seed: int, n: int, device: str = "cuda"):
+    """n synthetic 256x256 uint8 images made on ``device`` (the card):
+    N_CLASSES smooth base patterns (8x8 noise upsampled), each image its
+    class's pattern
     plus a brightness offset and pixel noise; PLANTED_SHARE of them carry
     another class's pattern under their label.  Returns host (images,
     labels, planted)."""
     import torch.nn.functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    small = torch.rand(N_CLASSES, 3, 8, 8, generator=g, device="cuda") * 255
+    g = torch.Generator(device=device).manual_seed(seed)
+    small = torch.rand(N_CLASSES, 3, 8, 8, generator=g, device=device) * 255
     bases = F.interpolate(small, size=(256, 256), mode="bilinear",
                           align_corners=False).permute(0, 2, 3, 1)
-    labels = torch.randint(0, N_CLASSES, (n,), generator=g, device="cuda")
-    planted = torch.rand(n, generator=g, device="cuda") < PLANTED_SHARE
-    shift = torch.randint(1, N_CLASSES, (n,), generator=g, device="cuda")
+    labels = torch.randint(0, N_CLASSES, (n,), generator=g, device=device)
+    planted = torch.rand(n, generator=g, device=device) < PLANTED_SHARE
+    shift = torch.randint(1, N_CLASSES, (n,), generator=g, device=device)
     pattern = torch.where(planted, (labels + shift) % N_CLASSES, labels)
-    images = torch.empty((n, 256, 256, 3), dtype=torch.uint8, device="cuda")
+    images = torch.empty((n, 256, 256, 3), dtype=torch.uint8, device=device)
     for start in range(0, n, 1024):
         stop = min(start + 1024, n)
         offset = (torch.rand(stop - start, 1, 1, 1, generator=g,
-                             device="cuda") - 0.5) * 40
+                             device=device) - 0.5) * 40
         noise = torch.randn(stop - start, 256, 256, 3, generator=g,
-                            device="cuda") * 24
+                            device=device) * 24
         images[start:stop] = (bases[pattern[start:stop]] + offset + noise
                               ).clamp(0, 255).to(torch.uint8)
     return (images.cpu().numpy(), labels.to(torch.int32).cpu().numpy(),
@@ -1078,6 +1095,241 @@ def phase_bench(out: dict, seed: int) -> None:
         raise RuntimeError(f"bench checks failed: {failed}")
 
 
+# the train phase: ResNet50/224 fine-tunes on synthetic class-pattern
+# images made on the card, 2,048 to train on and 512 to validate
+N_TRAIN, N_VAL = 2048, 512
+TRAIN_BATCHES = (32, 256)  # the main run's batch first; images/s at both
+TRAIN_IMAGE_SIZE = 224
+# where the train phase runs; a rehearsal on a machine without a card sets
+# this, the sizes above and CARD_CPU_BATCH to the CPU and a tiny size
+TRAIN_DEVICE = "cuda"
+# f32 'highest' step on the card against the same step on the CPU
+CARD_CPU_LOSS_TOL, CARD_CPU_GRAD_TOL = 1e-4, 1e-3
+CARD_CPU_BATCH = 8
+# K1 ('auto') against cuDNN ('off'), one bf16 step from the fit's weights
+# and the same draws: loss relative gap and max|g_auto - g_off| over the
+# largest |g_off| of layer4 and the head (_grad_gap).  Twice the drift of
+# one bf16 step (cuDNN) from the f32 step on the card, which measured
+# loss 1.806e-2 and gradients 6.58e-2 (K1's own gaps 8.57e-3 and
+# 1.91e-2; NVIDIA H100 80GB HBM3, 700.00 W, B=32, seed 0).
+K1_STEP_LOSS_TOL, K1_STEP_GRAD_TOL = 3.6e-2, 1.3e-1
+
+
+def _train_sets(seed: int):
+    """(train, val, info): N_TRAIN + N_VAL synthetic images from the seed
+    (made on the card as the curation phase makes them), class weights
+    n / (k * count) as the curation CLI's dataset analysis gives them."""
+    from irp_tpu_torch.config import DatasetInfo
+    from irp_tpu_torch.data.pipeline import CachedDataset
+
+    images, labels, _ = _curation_images(seed + 5, N_TRAIN + N_VAL,
+                                         TRAIN_DEVICE)
+    names = tuple(f"class{c}" for c in range(N_CLASSES))
+
+    def subset(sl):
+        return CachedDataset(images=images[sl], labels=labels[sl],
+                             keys=[f"img{i}" for i in range(
+                                 *sl.indices(len(labels)))],
+                             class_names=names)
+
+    train, val = subset(slice(0, N_TRAIN)), subset(slice(N_TRAIN, None))
+    counts = np.bincount(train.labels, minlength=N_CLASSES)
+    info = DatasetInfo(num_classes=N_CLASSES, class_names=names,
+                       class_weights=tuple(float(N_TRAIN / (N_CLASSES * c))
+                                           for c in counts),
+                       class_counts=tuple(int(c) for c in counts),
+                       total_samples=N_TRAIN)
+    return train, val, info
+
+
+def _train_model_cfg(**kw):
+    from irp_tpu_torch.config import ModelConfig
+
+    return ModelConfig(depth=50, num_classes=N_CLASSES,
+                       image_size=TRAIN_IMAGE_SIZE, hidden_dim=512, **kw)
+
+
+def _one_step_grads(cfg, state_dict, images, labels, draws, class_weights,
+                    device):
+    """Loss and trainable gradients of one train step (dropout 0) of a
+    model with ``state_dict`` on ``device``, as host float64 arrays."""
+    from irp_tpu_torch.models.classifier import get_classifier
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.step import (StepConfig, augment_mix,
+                                          loss_and_grads)
+
+    model = get_classifier(cfg, device=device)
+    model.load_state_dict(state_dict)
+    set_mode(model, True)
+    dtype = getattr(torch, cfg.compute_dtype)
+    scfg = StepConfig(intensity="medium", out_size=cfg.image_size,
+                      compute_dtype=dtype, dropout_rate=0.0)
+    x, y, _, _ = augment_mix(torch.from_numpy(images).to(device),
+                             torch.from_numpy(labels).long().to(device), scfg,
+                             draws.to(device), None)
+    loss, _ = loss_and_grads(model, x, y, scfg,
+                             torch.tensor(class_weights, device=device))
+    grads = {n: p.grad.double().cpu().numpy()
+             for n, p in model.named_parameters() if p.requires_grad}
+    return float(loss), grads
+
+
+def _grad_gap(got: dict, want: dict) -> dict:
+    """Gradient gaps over the trainable tensors (layer4 and the head):
+    ``max_rel``, the largest |got - want| over the largest |want| of all
+    of them (a tensor's own max|g| is no scale where its exact gradient
+    nearly cancels, as a BatchNorm bias before a train-mode BatchNorm's);
+    ``l2_rel``, the relative L2 gap of all of them together; ``worst``,
+    the tensor where the largest gap is."""
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    gaps = {n: float(np.abs(got[n] - want[n]).max()) for n in want}
+    worst = max(gaps, key=gaps.get)
+    num = sum(float(((got[n] - want[n]) ** 2).sum()) for n in want)
+    den = sum(float((w ** 2).sum()) for w in want.values())
+    return {"max_rel": gaps[worst] / max(scale, 1e-30),
+            "l2_rel": math.sqrt(num / max(den, 1e-300)), "worst": worst}
+
+
+def _train_images_per_s(train, val, info, batch: int, fused: str,
+                        seed: int) -> float:
+    """Train images/s of fit at ``batch`` with K1 on ('auto') or off, from
+    its second epoch's CUDA-event time (the first carries cuDNN's
+    algorithm search), eval excluded."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.train import fit
+
+    cfg = TrainConfig(batch_size=batch, max_epochs=2, patience=99,
+                      seed=seed, train_samples_per_epoch=max(1024,
+                                                             8 * batch),
+                      eval_samples=batch)
+    res = fit(train, val, info, _train_model_cfg(fused_frozen_blocks=fused),
+              cfg, device=TRAIN_DEVICE)
+    return (res.steps_per_epoch * batch
+            / (res.history["train_ms"][1] / 1e3))
+
+
+def phase_train(out: dict, seed: int) -> None:
+    """The fine-tune: fit at ResNet50/224, bf16, K1 on ('auto'), medium
+    augmentation, batch 32, adam on the OneCycle schedule with class
+    weights, 2 epochs of 32 steps with eval on 512 images each, on the
+    card; then the step-level gates and train images/s."""
+    import dataclasses
+
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess
+    from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
+    from irp_tpu_torch.ops.preprocess import sample_augment_draws
+    from irp_tpu_torch.train import fit
+
+    t0 = time.perf_counter()
+    train, val, info = _train_sets(seed)
+    model_cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    train_cfg = TrainConfig(batch_size=TRAIN_BATCHES[0], max_epochs=2,
+                            patience=99, seed=seed,
+                            eval_samples=min(512, N_VAL))
+    setup_s = time.perf_counter() - t0
+    # the main path: counts from 0 just before, read just after
+    eval_preprocess.launches = 0
+    fused_identity_bottleneck.launches = 0
+    t0 = time.perf_counter()
+    res = fit(train, val, info, model_cfg, train_cfg, device=TRAIN_DEVICE)
+    fit_s = time.perf_counter() - t0
+    launches = {"eval_preprocess": eval_preprocess.launches,
+                "identity_bottleneck": fused_identity_bottleneck.launches}
+    out["launches"]["train"] = launches
+    h = res.history
+    steps = res.steps_per_epoch
+    eval_batches = math.ceil(train_cfg.eval_samples / train_cfg.batch_size)
+    want_k1 = 10 * train_cfg.max_epochs * (steps + eval_batches)
+    want_k2 = train_cfg.max_epochs * eval_batches
+
+    # one step from the same weights and draws: K1 against cuDNN (bf16),
+    # the bf16 step's drift from the f32 one, and the f32 step on the card
+    # against the CPU.  The weights are the fit's: at random init the
+    # step's layer4 gradients nearly cancel and two f32 summation orders
+    # already part by 1e-3 of max|g| (printed below, not gated)
+    state_dict = {k: v.detach().cpu().clone()
+                  for k, v in res.state.model.state_dict().items()}
+    b = TRAIN_BATCHES[0]
+    images, labels = train.images[:b], train.labels[:b]
+    draws = sample_augment_draws(torch.Generator().manual_seed(seed), b, 256,
+                                 256, "medium")
+    cw = info.class_weights
+    f32_cfg = _f32(model_cfg)
+    step = {}
+    for name, cfg in (("auto", model_cfg),
+                      ("off", dataclasses.replace(
+                          model_cfg, fused_frozen_blocks="off")),
+                      ("f32", f32_cfg)):
+        step[name] = _one_step_grads(cfg, state_dict, images, labels, draws,
+                                     cw, TRAIN_DEVICE)
+    k1_loss = abs(step["auto"][0] - step["off"][0]) / abs(step["off"][0])
+    k1_grad = _grad_gap(step["auto"][1], step["off"][1])
+    drift_loss = abs(step["off"][0] - step["f32"][0]) / abs(step["f32"][0])
+    drift_grad = _grad_gap(step["off"][1], step["f32"][1])
+    n = CARD_CPU_BATCH
+    sub_draws = sample_augment_draws(torch.Generator().manual_seed(seed + 1),
+                                     n, 256, 256, "medium")
+    card = _one_step_grads(f32_cfg, state_dict, images[:n], labels[:n],
+                           sub_draws, cw, TRAIN_DEVICE)
+    cpu = _one_step_grads(f32_cfg, state_dict, images[:n], labels[:n],
+                          sub_draws, cw, "cpu")
+    cpu_loss = abs(card[0] - cpu[0]) / abs(cpu[0])
+    cpu_grad = _grad_gap(card[1], cpu[1])
+    init_sd = _random_state_dict(seed)
+    card0 = _one_step_grads(f32_cfg, init_sd, images[:n], labels[:n],
+                            sub_draws, cw, TRAIN_DEVICE)
+    cpu0 = _one_step_grads(f32_cfg, init_sd, images[:n], labels[:n],
+                           sub_draws, cw, "cpu")
+
+    ips = {}
+    for batch in TRAIN_BATCHES:
+        for fused in ("auto", "off"):
+            if batch == train_cfg.batch_size and fused == "auto":
+                ips[f"b{batch}_k1_on"] = steps * batch / (
+                    h["train_ms"][1] / 1e3)
+                continue
+            key = f"b{batch}_k1_{'on' if fused == 'auto' else 'off'}"
+            ips[key] = _train_images_per_s(train, val, info, batch, fused,
+                                           seed)
+    checks = {
+        "losses_finite": bool(np.isfinite(h["train_loss"]).all()
+                              and np.isfinite(h["val_loss"]).all()),
+        "loss_falls": h["train_loss"][1] < h["train_loss"][0],
+        "k1_ten_per_forward": launches["identity_bottleneck"] == want_k1,
+        "k2_once_per_eval_batch": launches["eval_preprocess"] == want_k2,
+        "k1_step_loss_vs_cudnn": k1_loss <= K1_STEP_LOSS_TOL,
+        "k1_step_grads_vs_cudnn": k1_grad["max_rel"] <= K1_STEP_GRAD_TOL,
+        "f32_card_vs_cpu_loss": cpu_loss <= CARD_CPU_LOSS_TOL,
+        "f32_card_vs_cpu_grads": cpu_grad["max_rel"] <= CARD_CPU_GRAD_TOL,
+        "grads_finite": all(np.isfinite(g).all() for s in step.values()
+                            for g in s[1].values()),
+    }
+    emit({"phase": "train",
+          "model": "ResNet50/224 bf16, K1 'auto', 10 classes, hidden 512",
+          "recipe": "medium aug, adam + coupled L2, onecycle, class weights",
+          "batch": train_cfg.batch_size, "epochs": train_cfg.max_epochs,
+          "steps_per_epoch": steps, "train_images": N_TRAIN,
+          "val_images": N_VAL, "setup_s": setup_s, "fit_s": fit_s,
+          "history": h, "best_val_acc": res.best_val_acc,
+          "launches": launches,
+          "expected_launches": {"identity_bottleneck": want_k1,
+                                "eval_preprocess": want_k2},
+          "step_k1_vs_cudnn": {"loss_rel": k1_loss, "grads": k1_grad},
+          "step_bf16_vs_f32_drift": {"loss_rel": drift_loss,
+                                     "grads": drift_grad},
+          "step_f32_card_vs_cpu": {"batch": n, "loss_rel": cpu_loss,
+                                   "grads": cpu_grad},
+          "step_f32_card_vs_cpu_random_init": {
+              "loss_rel": abs(card0[0] - cpu0[0]) / abs(cpu0[0]),
+              "grads": _grad_gap(card0[1], cpu0[1])},
+          "train_images_per_s": ips, "checks": checks})
+    out["train_images_per_s"] = ips
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"train checks failed: {failed}")
+
+
 _PROFILE_GROUPS = (
     ("identity_bottleneck (K1)", ("identity_bottleneck",)),
     ("eval_preprocess (K2)", ("eval_preprocess",)),
@@ -1096,30 +1348,14 @@ def _profile_group(name: str) -> str:
     return "other (elementwise, pooling, reductions)"
 
 
-def phase_profile(out: dict, seed: int, batch: int = 64, reps: int = 5
-                  ) -> None:
-    """Where the device time of ``predict_probs`` goes: a torch.profiler
-    trace of ``reps`` batches, device time summed by kernel group and the
-    device's idle share of the host wall time."""
+def _device_time(prof, wall_us: float, reps: int) -> dict:
+    """Device time of a torch.profiler trace over ``reps`` repetitions:
+    device kernels and copies per repetition, busy ms per repetition (the
+    union of their spans), the idle
+    share of the host wall time, ms per repetition by kernel group and the
+    top kernels by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from irp_tpu_torch.infer import make_predictor
-
-    pred = make_predictor(_random_variables(seed), batch_size=batch,
-                          image_size=224, fused_frozen_blocks="auto")
-    images = np.random.default_rng(seed + 2).integers(
-        0, 256, (batch, 256, 256, 3), np.uint8)
-    for _ in range(2):
-        pred.predict_probs(images)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            pred.predict_probs(images)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -1140,15 +1376,117 @@ def phase_profile(out: dict, seed: int, batch: int = 64, reps: int = 5
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile", "batch": batch, "reps": reps,
-          "wall_ms_per_batch": wall_us / reps / 1e3,
-          "device_busy_ms_per_batch": busy / reps / 1e3,
-          "device_idle_share": 1.0 - busy / wall_us,
-          "device_ms_per_batch_by_group": {
-              g: t / reps / 1e3 for g, t in sorted(groups.items(),
-                                                    key=lambda kv: -kv[1])},
-          "top_kernels_ms_per_batch": [[n[:120], t / reps / 1e3]
-                                       for n, t in top]})
+    return {"wall_ms": wall_us / reps / 1e3,
+            "kernels": len(spans) / reps,
+            "device_busy_ms": busy / reps / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_ms_by_group": {
+                g: t / reps / 1e3 for g, t in sorted(groups.items(),
+                                                      key=lambda kv: -kv[1])},
+            "top_kernels_ms": [[n[:120], t / reps / 1e3] for n, t in top]}
+
+
+def _profiled(fn, reps: int) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn`` after a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _device_time(prof, wall_us, reps)
+
+
+TRAIN_SPLIT = ("augment", "frozen_forward_k1", "layer4_forward",
+               "head_forward_and_loss", "backward_layer4_and_head",
+               "optimizer")
+
+
+def _train_step_profile(seed: int, batch: int = 256, reps: int = 3) -> dict:
+    """One fit train step at ResNet50/224, bf16, K1 'auto', medium aug,
+    adam: the step written out as train/step.py::train_step runs it, with
+    CUDA events between its parts (TRAIN_SPLIT; the backward of layer4 and
+    of the head is one autograd call), then torch.profiler over whole
+    train_step calls for the device's busy time and idle share."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.models.classifier import (get_classifier,
+                                                 weighted_cross_entropy)
+    from irp_tpu_torch.ops.preprocess import (augment_batch_fused,
+                                              sample_augment_draws)
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.state import create_train_state
+    from irp_tpu_torch.train.step import StepConfig, train_step
+
+    cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    model = get_classifier(cfg, device="cuda")
+    model.load_state_dict(_random_state_dict(seed))
+    set_mode(model, True)
+    state = create_train_state(model, TrainConfig(batch_size=batch), cfg, 8)
+    images, labels, _ = _curation_images(seed + 7, batch)
+    images = torch.from_numpy(images).cuda()
+    labels = torch.from_numpy(labels).long().cuda()
+    cw = torch.ones(N_CLASSES, device="cuda")
+    bf16 = torch.bfloat16
+    scfg = StepConfig(intensity="medium", out_size=224, compute_dtype=bf16,
+                      dropout_rate=cfg.dropout_rate)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for _ in range(2):  # warm (cuDNN algorithm search)
+        train_step(state, images, labels, scfg, cw, gen)
+    split = {name: [] for name in TRAIN_SPLIT}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(TRAIN_SPLIT) + 1)]
+        ev[0].record()
+        draws = sample_augment_draws(gen, batch, 256, 256, "medium")
+        x = augment_batch_fused(images, draws, "medium", 224, dtype=bf16,
+                                work_dtype=bf16)
+        ev[1].record()
+        state.optimizer.zero_grad()
+        frozen = model.backbone.forward_frozen(x.permute(0, 3, 1, 2))
+        ev[2].record()
+        feats = model.backbone.forward_trainable(frozen)
+        ev[3].record()
+        loss = weighted_cross_entropy(
+            model.head(feats, scfg.dropout_rate, None, gen), labels, cw)
+        ev[4].record()
+        loss.backward()
+        ev[5].record()
+        state.apply_gradients()
+        ev[6].record()
+        ev[6].synchronize()
+        for i, name in enumerate(TRAIN_SPLIT):
+            split[name].append(ev[i].elapsed_time(ev[i + 1]))
+    split_ms = {name: statistics.median(v) for name, v in split.items()}
+    traced = _profiled(lambda: train_step(state, images, labels, scfg, cw,
+                                          gen), reps)
+    return {"batch": batch, "reps": reps, "split_ms": split_ms,
+            "split_total_ms": sum(split_ms.values()), **traced}
+
+
+def phase_profile(out: dict, seed: int, batch: int = 64, reps: int = 5
+                  ) -> None:
+    """Where the device time goes: torch.profiler over ``reps`` batches of
+    ``predict_probs`` (device time by kernel group, the device's idle
+    share), and one fit train step at B=256 and at the train phase's batch,
+    split by CUDA events into its parts, with its own trace."""
+    from irp_tpu_torch.infer import make_predictor
+
+    pred = make_predictor(_random_variables(seed), batch_size=batch,
+                          image_size=224, fused_frozen_blocks="auto")
+    images = np.random.default_rng(seed + 2).integers(
+        0, 256, (batch, 256, 256, 3), np.uint8)
+    for _ in range(2):
+        pred.predict_probs(images)
+    serve = _profiled(lambda: pred.predict_probs(images), reps)
+    emit({"phase": "profile", "path": "serve predict_probs", "batch": batch,
+          "reps": reps, **serve})
+    for train_batch in (256, TRAIN_BATCHES[0]):
+        emit({"phase": "profile", "path": "train step",
+              **_train_step_profile(seed, train_batch)})
 
 
 def _f32(cfg):
@@ -1192,6 +1530,8 @@ def main(argv=None) -> int:
         phase_curation(out, args.seed)
     if "bench" in phases:
         phase_bench(out, args.seed)
+    if "train" in phases:
+        phase_train(out, args.seed)
     if "profile" in phases:
         phase_profile(out, args.seed)
     # the bench phase's B=256 times, beside each kernel's yardstick call

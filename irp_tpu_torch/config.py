@@ -1,8 +1,9 @@
 """Configuration of the PyTorch port.
 
-The port's own copy of the constants and of ``ModelConfig`` from the JAX
-package's ``config.py``: the same fields with the same defaults, so that a
-configuration means the same model in both packages.  Only the ResNet
+The port's own copy of the constants and of ``ModelConfig``,
+``DatasetInfo`` and ``TrainConfig`` from the JAX package's ``config.py``:
+the same fields with the same defaults, so that a configuration means the
+same model and the same training run in both packages.  Only the ResNet
 family runs in this port so far; the other families' fields are kept so
 that a configuration carries over unchanged.
 """
@@ -10,12 +11,33 @@ that a configuration carries over unchanged.
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping
 
 # ImageNet normalization constants.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 FUSED_MODES = ("auto", "on", "off")
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetInfo:
+    """Class inventory of a dataset.
+
+    ``class_names`` are ordered by descending frequency (that order is the
+    label <-> index mapping); ``class_weights`` are inverse-frequency
+    ``n / (k * freq)``, aligned with ``class_names``.
+    """
+
+    num_classes: int
+    class_names: tuple
+    class_weights: tuple
+    class_counts: tuple
+    total_samples: int
+
+    @property
+    def name_to_index(self) -> Mapping[str, int]:
+        return {n: i for i, n in enumerate(self.class_names)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +84,48 @@ class ModelConfig:
     fused_frozen_blocks: str = "off"
     remat_trainable_blocks: bool = False
     pretrained_path: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings of a fine-tune (``train/fit.py``).
+
+    - ``optimizer``: 'adam' (coupled L2: the decay enters the moments, as
+      ``torch.optim.Adam(weight_decay=...)``), 'adamw' (decoupled decay)
+      or 'sgd' (momentum 0.9, coupled L2).
+    - ``schedule``: 'onecycle' (OneCycleLR with cosine annealing and
+      torch's defaults), 'cosine' (CosineAnnealingLR, eta_min 0) or
+      'constant'; ``scheduler_step`` 'batch' advances it per step, 'epoch'
+      once per epoch.
+    - ``train_samples_per_epoch`` / ``eval_samples``: subsampled epochs
+      (None: the whole set).
+    - ``mixup_alpha`` / ``cutmix_alpha``: batch mixing, 0 = off; with both
+      set a fair coin per step picks the transform.
+    - ``ema_decay`` > 0 tracks an EMA of the weights and of the BN running
+      statistics; validation, the best snapshot and the returned weights
+      then use it.
+    - ``grad_accum_steps``: sequential micro-batches per optimizer step,
+      each loss normalized by the full batch's denominator.
+    - ``hbm_reshuffle``: re-permute the device-resident train set every
+      epoch.
+    """
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    optimizer: str = "adam"  # adam | adamw | sgd
+    schedule: str = "onecycle"  # onecycle | cosine | constant
+    batch_size: int = 32
+    max_epochs: int = 15
+    patience: int = 4
+    aug_intensity: str = "medium"  # low | medium | high
+    train_samples_per_epoch: int | None = 1024
+    eval_samples: int | None = 512
+    steps_per_epoch_override: int | None = None
+    scheduler_step: str = "batch"  # batch | epoch
+    seed: int = 42
+    label_smoothing: float = 0.0
+    mixup_alpha: float = 0.0
+    cutmix_alpha: float = 0.0
+    ema_decay: float = 0.0
+    grad_accum_steps: int = 1
+    hbm_reshuffle: bool = True

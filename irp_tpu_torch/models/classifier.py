@@ -5,11 +5,19 @@ The head is ``Sequential(Dropout, Linear, ReLU, Dropout, Linear)``, so its
 keys are ``classifier.1`` / ``classifier.4`` as in the reference stack's
 AnimalClassifier; the backbone sits under ``backbone.``.  Only the ResNet
 family is ported so far.
+
+Training: the head's dropout takes its rate at run time and its mask from
+the caller or from a generator the caller gives (:class:`Dropout`);
+parameters outside the trainable stages get ``requires_grad=False``
+(:func:`resolve_trainable_stages`); the losses are the JAX package's
+class-weighted cross-entropies (:func:`weighted_cross_entropy`,
+:func:`mixed_weighted_cross_entropy`).
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -33,6 +41,44 @@ class Linear(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with a rate given at run time:
+    ``where(mask, x / keep, 0)`` with keep = 1 - rate, ``x / keep``
+    rounded to x.dtype.  The mask is the caller's, or Bernoulli(keep)
+    drawn from ``generator`` (the default generator when None)."""
+
+    def forward(self, x, rate: float, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        keep = 1.0 - float(rate)
+        if mask is None:
+            if keep >= 1.0:
+                return x
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+        divisor = float(torch.tensor(max(keep, 1e-6)).to(x.dtype))
+        return torch.where(mask, x / divisor, torch.zeros_like(x))
+
+
+def resolve_trainable_stages(cfg: ModelConfig) -> tuple:
+    """The effective trainable-stage tuple of a config (the ResNet family
+    takes ``trainable_stages`` literally)."""
+    if cfg.family != "resnet":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1, "
+            f"A13: the other model families)")
+    return tuple(cfg.trainable_stages)
+
+
+def is_trainable(name: str, stages: Sequence[str]) -> bool:
+    """Whether the parameter ``name`` (a state_dict key) trains: the head
+    always; a backbone parameter when its stage is in ``stages`` (the stem
+    is in none)."""
+    parts = name.split(".")
+    if parts[0] != "backbone":
+        return True
+    return len(parts) > 2 and parts[1] in stages
 
 
 def _frozen_prefix(cfg: ModelConfig) -> int:
@@ -100,13 +146,20 @@ class Classifier(nn.Module):
                                precision=cfg.precision,
                                fused_frozen_blocks=cfg.fused_frozen_blocks)
         self.classifier = nn.Sequential(
-            nn.Dropout(cfg.dropout_rate),
+            Dropout(),
             Linear(self.backbone.num_features, cfg.hidden_dim, dtype),
             nn.ReLU(),
-            nn.Dropout(cfg.dropout_rate),
+            Dropout(),
             Linear(cfg.hidden_dim, cfg.num_classes, dtype))
+        stages = () if cfg.head_only else resolve_trainable_stages(cfg)
+        for name, p in self.named_parameters():
+            p.requires_grad_(is_trainable(name, stages))
 
-    def _precision(self, x):
+    def precision_scope(self, x):
+        """The context a forward on ``x`` runs in, and its backward must
+        run in too: with ``precision='highest'`` on a card, cuDNN's convs
+        without TF32 (the forward's scope ends before ``backward()``
+        runs its convs)."""
         if self.config.precision == "highest" and x.is_cuda:
             return torch.backends.cudnn.flags(
                 enabled=torch.backends.cudnn.enabled,
@@ -115,9 +168,32 @@ class Classifier(nn.Module):
                 allow_tf32=False)
         return contextlib.nullcontext()
 
-    def forward(self, x):
-        with self._precision(x):
-            return self.classifier(self.backbone(x)).float()
+    def forward(self, x, dropout_rate: Optional[float] = None,
+                dropout_masks=None,
+                generator: Optional[torch.Generator] = None):
+        """f32 logits.  In train mode the head's two dropouts run at
+        ``dropout_rate`` (the config's when None), with ``dropout_masks``
+        (a pair of bool tensors) or masks drawn from ``generator``."""
+        with self.precision_scope(x):
+            return self.head(self.backbone(x), dropout_rate, dropout_masks,
+                             generator)
+
+    def head(self, feats, dropout_rate: Optional[float] = None,
+             dropout_masks=None,
+             generator: Optional[torch.Generator] = None):
+        """The MLP head on pooled features (B, C) -> f32 (B, classes);
+        dropout only in train mode."""
+        drop1, dense1, relu, drop2, dense2 = self.classifier
+        rate = (self.config.dropout_rate if dropout_rate is None
+                else dropout_rate)
+        masks = dropout_masks or (None, None)
+        y = feats
+        if self.training:
+            y = drop1(y, rate, masks[0], generator)
+        y = relu(dense1(y))
+        if self.training:
+            y = drop2(y, rate, masks[1], generator)
+        return dense2(y).float()
 
     def features(self, x):
         """Headless forward in eval form (inference BN), f32 (B, F): the
@@ -126,7 +202,7 @@ class Classifier(nn.Module):
         if training:
             self.eval()
         try:
-            with self._precision(x):
+            with self.precision_scope(x):
                 return self.backbone(x).float()
         finally:
             if training:
@@ -159,3 +235,39 @@ def init_classifier(cfg: ModelConfig,
     model = Classifier(cfg)
     model.init_weights(generator)
     return model.to(device=dev, memory_format=torch.channels_last)
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           class_weights: Optional[torch.Tensor] = None,
+                           label_smoothing: float = 0.0, denom=None):
+    """Per-class-weighted softmax cross-entropy, torch
+    ``CrossEntropyLoss(weight=w)``'s weighted mean sum(w_i ce_i) /
+    sum(w_i), with label smoothing.  ``denom`` replaces the denominator
+    (the batch size, or the weight sum when weighted): gradient
+    accumulation passes the full batch's so that micro-batch losses sum
+    to the full-batch loss."""
+    num_classes = logits.shape[-1]
+    onehot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
+    if label_smoothing > 0.0:
+        onehot = onehot * (1.0 - label_smoothing) \
+            + label_smoothing / num_classes
+    ce = -(onehot * F.log_softmax(logits, dim=-1)).sum(dim=-1)
+    if class_weights is None:
+        return ce.mean() if denom is None else ce.sum() / denom
+    w = class_weights.to(logits.dtype)[labels.long()]
+    d = w.sum().clamp_min(1e-8) if denom is None else denom
+    return (w * ce).sum() / d
+
+
+def mixed_weighted_cross_entropy(logits, labels_a, labels_b, lam: float,
+                                 class_weights=None,
+                                 label_smoothing: float = 0.0,
+                                 denom_a=None, denom_b=None):
+    """The mixup/CutMix loss ``lam * CE(y_a) + (1 - lam) * CE(y_b)``, each
+    term with its own weighted-mean denominator (``ops/mix.py``)."""
+    loss_a = weighted_cross_entropy(logits, labels_a, class_weights,
+                                    label_smoothing, denom=denom_a)
+    loss_b = weighted_cross_entropy(logits, labels_b, class_weights,
+                                    label_smoothing, denom=denom_b)
+    lam = float(torch.tensor(lam, dtype=loss_a.dtype))
+    return lam * loss_a + (1.0 - lam) * loss_b

@@ -13,7 +13,10 @@ The port's modules follow torchvision names under ``backbone.`` and a
   running_mean/running_var.
 
 :func:`load_torch_checkpoint` and :func:`merge_pretrained` bring a
-torchvision-layout ``.pth`` (a pretrained backbone) into a port model.
+torchvision-layout ``.pth`` (a pretrained backbone) into a port model;
+:func:`optax_state_to_optimizer_state` turns the JAX package's optimizer
+state into the port's (``train/state.py::Optimizer.state_dict``), so both
+packages can start from one mid-training state.
 """
 
 from __future__ import annotations
@@ -173,3 +176,94 @@ def merge_pretrained(model: torch.nn.Module,
         for target, value in updates.items():
             own[target].copy_(torch.as_tensor(value))
     return model
+
+
+def flax_param_name(path) -> tuple:
+    """A flax ``params`` path (tuple of keys) -> (state_dict name, layout
+    function): conv kernels HWIO -> OIHW, Dense kernels transposed, BN
+    ``scale``/``bias`` -> ``weight``/``bias``."""
+    path = tuple(path)
+    if path[0] in ("head_dense1", "head_dense2"):
+        idx = "1" if path[0] == "head_dense1" else "4"
+        if path[1] == "kernel":
+            return f"classifier.{idx}.weight", lambda a: a.T
+        return f"classifier.{idx}.bias", lambda a: a
+    if path[0] != "backbone":
+        raise KeyError(f"unrecognized parameter path {path}")
+    if len(path) == 3:
+        prefix, (mod, field) = "backbone", path[1:]
+    else:
+        stage, block = re.fullmatch(r"(layer\d)_block(\d+)",
+                                    path[1]).groups()
+        prefix, (mod, field) = f"backbone.{stage}.{block}", path[2:]
+        mod = {"downsample_conv": "downsample.0",
+               "downsample_bn": "downsample.1"}.get(mod, mod)
+    if field == "kernel":
+        return f"{prefix}.{mod}.weight", lambda a: a.transpose(3, 2, 0, 1)
+    return f"{prefix}.{mod}.{'weight' if field == 'scale' else 'bias'}", \
+        lambda a: a
+
+
+def _flax_leaves(tree: Mapping, prefix=()):
+    """(path, array) for every array leaf of a nested mapping; other leaves
+    (optax's ``MaskedNode`` for a frozen parameter) are skipped."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, Mapping):
+            yield from _flax_leaves(value, prefix + (key,))
+        elif hasattr(value, "shape") and hasattr(value, "dtype"):
+            yield prefix + (key,), np.asarray(value)
+
+
+def _named(tree: Mapping) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, arr in _flax_leaves(tree):
+        name, layout = flax_param_name(path)
+        out[name] = torch.from_numpy(
+            np.array(layout(arr.astype(np.float32)), np.float32))
+    return out
+
+
+def optax_state_to_optimizer_state(opt_state) -> dict:
+    """The JAX package's optax state (its arrays as numpy; adam, adamw or
+    sgd, masked to the trainable parameters, with or without the EMA slot)
+    -> the port's ``Optimizer.state_dict()``: the step count, lr and wd,
+    the masked moments ``mu``/``nu`` or ``trace`` by state_dict name, and
+    the EMA of the trainable parameters.
+
+    The state is walked by its field names (``count``, ``hyperparams``,
+    ``mu``, ``nu``, ``trace``, ``ema``), so this module needs no optax.
+    """
+    found: Dict[str, object] = {}
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is None:
+            if isinstance(node, (tuple, list)):
+                for v in node:
+                    walk(v)
+            return
+        for f in fields:
+            v = getattr(node, f)
+            if f in ("mu", "nu", "trace", "ema") and isinstance(v, Mapping):
+                found.setdefault(f, v)
+            elif f == "count":
+                found.setdefault("count", int(np.asarray(v)))
+            elif f == "hyperparams":
+                found.setdefault("hyperparams", v)
+            else:
+                walk(v)
+
+    walk(opt_state)
+    kinds = ("trace",) if "trace" in found else ("mu", "nu")
+    moments = {k: _named(found[k]) for k in kinds}
+    ema = None
+    if "ema" in found:
+        trainable = set(moments[kinds[0]])
+        ema = {n: t for n, t in _named(found["ema"]).items()
+               if n in trainable}
+    hp = found["hyperparams"]
+    return {"count": found["count"],
+            "learning_rate": float(np.asarray(hp["learning_rate"])),
+            "weight_decay": float(np.asarray(hp["weight_decay"])),
+            "moments": moments, "ema": ema}

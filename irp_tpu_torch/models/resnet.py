@@ -73,7 +73,15 @@ class Conv2d(nn.Conv2d):
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm in f32, output cast to ``compute_dtype``.  ``frozen``
     keeps it in inference form (running stats, no updates) under
-    ``.train()``."""
+    ``.train()``.
+
+    In train mode the batch statistics are flax's: mean and the biased
+    variance ``E[x^2] - E[x]^2`` (clipped at 0) in f32 over (N, H, W), and
+    the running buffers move by ``momentum`` toward that mean and biased
+    variance.  ``F.batch_norm`` would move ``running_var`` toward the
+    unbiased variance (n / (n - 1) larger), which the JAX package never
+    does.
+    """
 
     def __init__(self, features, compute_dtype=torch.bfloat16,
                  frozen: bool = False):
@@ -82,10 +90,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.frozen = frozen
 
     def forward(self, x):
-        batch_stats = self.training and not self.frozen
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, batch_stats, self.momentum,
-                         self.eps)
+        if not self.training or self.frozen:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(self.compute_dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean
+                                    + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
         return y.to(self.compute_dtype)
 
 
@@ -277,13 +297,27 @@ class ResNet(nn.Module):
                 mod.cache_folded_weights()
 
     def forward(self, x):
+        return self.forward_trainable(self.forward_frozen(x))
+
+    def forward_frozen(self, x):
+        """The stem and the first ``frozen_prefix`` stages: the stages run
+        without autograd, and the stem too when the prefix is not empty.
+        Only these stages hold fusable blocks."""
         fused = self.fuse_active(x)
         grad = torch.is_grad_enabled()
         with torch.set_grad_enabled(grad and self.frozen_prefix == 0):
             x = self.maxpool(F.relu(self.bn1(self.conv1(
                 x.to(self.compute_dtype)))))
-        for i, name in enumerate(STAGE_NAMES):
-            with torch.set_grad_enabled(grad and i >= self.frozen_prefix):
+        with torch.set_grad_enabled(False):
+            for name in STAGE_NAMES[:self.frozen_prefix]:
                 for block in getattr(self, name):
                     x = block(x, fused)
+        return x
+
+    def forward_trainable(self, x):
+        """The stages after the frozen prefix and the global pool:
+        ``forward(x) == forward_trainable(forward_frozen(x))``."""
+        for name in STAGE_NAMES[self.frozen_prefix:]:
+            for block in getattr(self, name):
+                x = block(x)
         return x.float().mean(dim=(2, 3)).to(self.compute_dtype)

@@ -1,0 +1,287 @@
+"""``fit``: the fine-tune end to end (the JAX package's ``train/fit.py``).
+
+Data, model, optimizer, steps and loops wired together: the ResNet
+classifier from the seed (or a pretrained backbone), the train set
+resident on the device (mode 'hbm') or streamed through pinned memory
+('stream'), one epoch of sampler windows per epoch, eval on the capped
+validation set each epoch, early stopping with the best weights restored.
+
+Resume: ``restore_from`` / ``start_epoch`` continue a run from a
+``train/checkpoint.py`` file.  Every epoch's random draws come from
+generators seeded by (seed, epoch), the skipped epochs' reshuffles are
+replayed and the sampler is fast-forwarded, so a resumed run draws what an
+uninterrupted one draws.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from irp_tpu_torch._kernels import resolve_device
+from irp_tpu_torch.config import DatasetInfo, ModelConfig, TrainConfig
+from irp_tpu_torch.data.pipeline import (CachedDataset, EpochSampler,
+                                         HBMDataset, HBMEvalSet,
+                                         iter_host_batches,
+                                         prefetch_to_device)
+from irp_tpu_torch.models.classifier import init_classifier
+from irp_tpu_torch.models.convert import (load_torch_checkpoint,
+                                          merge_pretrained)
+from irp_tpu_torch.train.loop import (evaluate, evaluate_hbm, restore_weights,
+                                      set_mode, snapshot_weights,
+                                      train_epoch, train_model)
+from irp_tpu_torch.train.state import create_train_state
+from irp_tpu_torch.train.step import (StepConfig, epoch_step, eval_epoch,
+                                      eval_step, train_step)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the reshuffle seed of epoch e is seed + RESHUFFLE_STRIDE * e
+RESHUFFLE_STRIDE = 1000003
+
+
+def compute_steps_per_epoch(train_cfg: TrainConfig, n_train: int) -> int:
+    """Steps per epoch: the override, else the whole set's batches capped
+    at ``train_samples_per_epoch // batch_size``."""
+    if train_cfg.steps_per_epoch_override is not None:
+        return max(int(train_cfg.steps_per_epoch_override), 1)
+    full = max(n_train // train_cfg.batch_size, 1)
+    if train_cfg.train_samples_per_epoch is None:
+        return full
+    cap = max(train_cfg.train_samples_per_epoch // train_cfg.batch_size, 1)
+    return min(full, cap)
+
+
+def resolve_fit_mode(train_cached: CachedDataset,
+                     val_cached: Optional[CachedDataset],
+                     train_cfg: TrainConfig, device,
+                     headroom: float = 0.6,
+                     budget_bytes: Optional[int] = None) -> str:
+    """'hbm' when the uint8 train set (twice, while a per-epoch reshuffle
+    gathers it into a second buffer) and the padded eval set fit in
+    ``headroom`` of the device's free memory
+    (``torch.cuda.mem_get_info``), else 'stream'.  A CPU device, which
+    reports no budget, gets 'hbm'; ``budget_bytes`` overrides the
+    budget."""
+    device = torch.device(device)
+    budget = budget_bytes
+    if budget is None:
+        if device.type != "cuda":
+            return "hbm"
+        budget = torch.cuda.mem_get_info(device)[0]
+    if train_cached.images is None or len(train_cached) == 0:
+        return "hbm"
+    px = train_cached.images.shape[1]
+    per_img = px * px * 3
+    need = len(train_cached) * per_img
+    if train_cfg.hbm_reshuffle:
+        need *= 2
+    if val_cached is not None and len(val_cached) > 0:
+        n_eval = len(val_cached)
+        if train_cfg.eval_samples is not None:
+            n_eval = min(n_eval, train_cfg.eval_samples)
+        bs = train_cfg.batch_size
+        need += -(-n_eval // bs) * bs * per_img
+    return "hbm" if need <= headroom * budget else "stream"
+
+
+def epoch_rngs(seed: int, epoch: int, device):
+    """The generators of one epoch, derived from (seed, epoch) alone: a
+    torch generator on ``device`` (per-image augmentation draws, dropout
+    masks) and a numpy generator (per-step mixing draws)."""
+    words = np.random.SeedSequence([seed, epoch]).generate_state(2,
+                                                                 np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(words[0] >> np.uint64(1)))
+    return gen, np.random.default_rng(int(words[1]))
+
+
+class _EpochTimer:
+    """Milliseconds of a span of device work: CUDA events on a card,
+    the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+
+    def __enter__(self):
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.end.record()
+            self.end.synchronize()
+            self.ms = self.start.elapsed_time(self.end)
+        else:
+            self.ms = (time.perf_counter() - self.t0) * 1e3
+
+
+@dataclass
+class FitResult:
+    state: object
+    history: dict
+    best_val_acc: float
+    steps_per_epoch: int
+    eval_step: object
+    device: torch.device
+
+
+def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
+        info: DatasetInfo, model_cfg: ModelConfig, train_cfg: TrainConfig,
+        logger=None, on_epoch_end=None, mode: str = "hbm",
+        verbose: bool = False, use_class_weights: bool = True,
+        restore_from: Optional[str] = None, start_epoch: int = 0,
+        device=None) -> FitResult:
+    """Fine-tune a classifier on ``train_cached``; validate on
+    ``val_cached`` (None: no validation, no early stopping, the last
+    epoch's weights).  Runs on the CUDA device unless ``device='cpu'``.
+
+    ``mode``: 'hbm' keeps the train set on the device, 'stream' feeds host
+    batches, 'auto' picks by :func:`resolve_fit_mode`.  With
+    ``fused_frozen_blocks`` 'auto' on a card, the frozen identity
+    bottlenecks run through K1 in every train and eval forward; the eval
+    crop runs through K2.  ``history`` holds per epoch the train loss and
+    accuracy (percent), the val loss and accuracy, and ``train_ms``, the
+    train epoch's time on the device (eval excluded).
+    """
+    dev = resolve_device(device)
+    if mode == "auto":
+        mode = resolve_fit_mode(train_cached, val_cached, train_cfg, dev)
+        if verbose:
+            print(f"fit: mode=auto resolved to '{mode}'")
+    if mode not in ("hbm", "stream"):
+        raise ValueError(f"unknown mode: {mode}")
+    accum = int(train_cfg.grad_accum_steps)
+    if accum < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
+    if train_cfg.batch_size % accum:
+        raise ValueError(f"batch_size={train_cfg.batch_size} must be "
+                         f"divisible by grad_accum_steps={accum}")
+    seed = train_cfg.seed
+    model = init_classifier(model_cfg,
+                            torch.Generator().manual_seed(seed), device=dev)
+    if model_cfg.pretrained_path:
+        merge_pretrained(model,
+                         load_torch_checkpoint(model_cfg.pretrained_path))
+    cache_px = train_cached.images.shape[1] if len(train_cached) else 0
+    if cache_px and model_cfg.image_size > cache_px:
+        raise ValueError(
+            f"model_cfg.image_size={model_cfg.image_size} exceeds the "
+            f"decode-cache resolution ({cache_px}px)")
+
+    steps_per_epoch = compute_steps_per_epoch(train_cfg, len(train_cached))
+    state = create_train_state(model, train_cfg, model_cfg, steps_per_epoch)
+    if restore_from is not None:
+        from irp_tpu_torch.train.checkpoint import restore_checkpoint
+
+        restore_checkpoint(restore_from, state)
+
+    cw_np = (np.asarray(info.class_weights, np.float32)
+             if use_class_weights else None)
+    cw = None if cw_np is None else torch.from_numpy(cw_np).to(dev)
+    dtype = _DTYPES[model_cfg.compute_dtype]
+    # bf16 training also augments in bf16; f32 stays f32
+    step_cfg = StepConfig(
+        intensity=train_cfg.aug_intensity, out_size=model_cfg.image_size,
+        compute_dtype=dtype,
+        label_smoothing=train_cfg.label_smoothing,
+        mixup_alpha=train_cfg.mixup_alpha,
+        cutmix_alpha=train_cfg.cutmix_alpha, grad_accum=accum,
+        dropout_rate=model_cfg.dropout_rate)
+    batch = train_cfg.batch_size
+    train_ms = []
+
+    if mode == "hbm":
+        hbm = HBMDataset(train_cached, dev, shuffle_seed=seed)
+        if start_epoch > 0 and train_cfg.hbm_reshuffle:
+            # replay the skipped epochs' reshuffles: they compose
+            for past in range(1, start_epoch):
+                hbm.local_reshuffle(seed + RESHUFFLE_STRIDE * past)
+        sampler = EpochSampler(hbm, batch, seed=seed)
+        for _ in range(start_epoch):
+            sampler.epoch_offsets(steps_per_epoch)
+
+        def run_epoch(state, epoch):
+            gen, mix_rng = epoch_rngs(seed, epoch, dev)
+            set_mode(model, True)
+            with _EpochTimer(dev) as timer:
+                if epoch > 0 and train_cfg.hbm_reshuffle:
+                    hbm.local_reshuffle(seed + RESHUFFLE_STRIDE * epoch)
+                offsets = sampler.epoch_offsets(steps_per_epoch)
+                metrics = epoch_step(state, hbm, offsets, batch, step_cfg,
+                                     cw, gen, mix_rng)
+            train_ms.append(timer.ms)
+            loss = float(metrics["loss"].mean())
+            acc = float(metrics["accuracy"].mean()) * 100.0
+            return state, loss, acc
+    else:
+        def run_epoch(state, epoch):
+            gen, mix_rng = epoch_rngs(seed, epoch, dev)
+            set_mode(model, True)
+            # drop_last: a wrap-padded batch would weigh its repeats twice;
+            # a set smaller than one batch keeps its one padded batch
+            drop_last = len(train_cached) >= batch
+            batches = prefetch_to_device(
+                iter_host_batches(train_cached, batch, shuffle=True,
+                                  seed=seed + epoch, drop_last=drop_last,
+                                  pad_final=not drop_last), dev)
+
+            def run_step(state, b, i):
+                images, labels, _ = b
+                return train_step(state, images, labels, step_cfg, cw, gen,
+                                  mix_rng)
+
+            with _EpochTimer(dev) as timer:
+                out = train_epoch(state, run_step, batches,
+                                  max_steps=steps_per_epoch)
+            train_ms.append(timer.ms)
+            return out
+
+    def run_eval_step(m, images_u8):
+        return eval_step(m, images_u8, model_cfg.image_size, dtype)
+
+    hbm_eval = None
+    if mode == "hbm" and val_cached is not None and len(val_cached) > 0:
+        hbm_eval = HBMEvalSet(val_cached, dev, batch,
+                              max_samples=train_cfg.eval_samples)
+
+    def eval_fn(state):
+        if val_cached is None or len(val_cached) == 0:
+            return None
+        set_mode(model, False)
+        with state.eval_view() as m:
+            if hbm_eval is not None:
+                return evaluate_hbm(
+                    m, lambda mm, he: eval_epoch(mm, he, model_cfg.image_size,
+                                                 dtype), hbm_eval, cw_np)
+            return evaluate(m, run_eval_step, val_cached, dev,
+                            batch_size=batch,
+                            max_samples=train_cfg.eval_samples,
+                            class_weights=cw_np)
+
+    def snapshot(state):
+        with state.eval_view() as m:
+            return snapshot_weights(m)
+
+    state, history, best = train_model(
+        state, run_epoch, eval_fn, train_cfg.max_epochs,
+        patience=train_cfg.patience, logger=logger,
+        on_epoch_end=on_epoch_end, verbose=verbose, start_epoch=start_epoch,
+        snapshot_fn=snapshot)
+    history["train_ms"] = train_ms
+    if train_cfg.ema_decay > 0 and (val_cached is None
+                                    or len(val_cached) == 0):
+        # no validation, no best restore: hand back the final EMA weights
+        restore_weights(model, snapshot(state))
+    set_mode(model, False)
+    return FitResult(state=state, history=history, best_val_acc=best,
+                     steps_per_epoch=steps_per_epoch,
+                     eval_step=run_eval_step, device=dev)
