@@ -112,6 +112,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -874,30 +875,29 @@ def phase_serve(out: dict, seed: int) -> None:
         raise RuntimeError(f"serve checks failed: {failed}")
 
 
-def _curation_images(seed: int, n: int, device: str = "cuda"):
-    """n synthetic 256x256 uint8 images made on ``device`` (the card):
-    N_CLASSES smooth base patterns (8x8 noise upsampled), each image its
-    class's pattern
+def _curation_images(seed: int, n: int):
+    """n synthetic 256x256 uint8 images made on the card: N_CLASSES smooth
+    base patterns (8x8 noise upsampled), each image its class's pattern
     plus a brightness offset and pixel noise; PLANTED_SHARE of them carry
     another class's pattern under their label.  Returns host (images,
     labels, planted)."""
     import torch.nn.functional as F
 
-    g = torch.Generator(device=device).manual_seed(seed)
-    small = torch.rand(N_CLASSES, 3, 8, 8, generator=g, device=device) * 255
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    small = torch.rand(N_CLASSES, 3, 8, 8, generator=g, device="cuda") * 255
     bases = F.interpolate(small, size=(256, 256), mode="bilinear",
                           align_corners=False).permute(0, 2, 3, 1)
-    labels = torch.randint(0, N_CLASSES, (n,), generator=g, device=device)
-    planted = torch.rand(n, generator=g, device=device) < PLANTED_SHARE
-    shift = torch.randint(1, N_CLASSES, (n,), generator=g, device=device)
+    labels = torch.randint(0, N_CLASSES, (n,), generator=g, device="cuda")
+    planted = torch.rand(n, generator=g, device="cuda") < PLANTED_SHARE
+    shift = torch.randint(1, N_CLASSES, (n,), generator=g, device="cuda")
     pattern = torch.where(planted, (labels + shift) % N_CLASSES, labels)
-    images = torch.empty((n, 256, 256, 3), dtype=torch.uint8, device=device)
+    images = torch.empty((n, 256, 256, 3), dtype=torch.uint8, device="cuda")
     for start in range(0, n, 1024):
         stop = min(start + 1024, n)
         offset = (torch.rand(stop - start, 1, 1, 1, generator=g,
-                             device=device) - 0.5) * 40
+                             device="cuda") - 0.5) * 40
         noise = torch.randn(stop - start, 256, 256, 3, generator=g,
-                            device=device) * 24
+                            device="cuda") * 24
         images[start:stop] = (bases[pattern[start:stop]] + offset + noise
                               ).clamp(0, 255).to(torch.uint8)
     return (images.cpu().numpy(), labels.to(torch.int32).cpu().numpy(),
@@ -1100,19 +1100,45 @@ def phase_bench(out: dict, seed: int) -> None:
 N_TRAIN, N_VAL = 2048, 512
 TRAIN_BATCHES = (32, 256)  # the main run's batch first; images/s at both
 TRAIN_IMAGE_SIZE = 224
-# where the train phase runs; a rehearsal on a machine without a card sets
-# this, the sizes above and CARD_CPU_BATCH to the CPU and a tiny size
-TRAIN_DEVICE = "cuda"
-# f32 'highest' step on the card against the same step on the CPU
+# the step-level gates run from the same weights and draws: at random
+# init (_random_state_dict) and, for K1, also from the fit's weights.
+# The card's f32 'highest' step against the CPU's, at random init, B=8 and
+# 32: loss relative gap and each trainable tensor's max|g_card - g_cpu|
+# over its own max|g_cpu|, with the card's ReLUs held to the CPU run's
+# masks.  Free, the two steps part by up to 3.5e-2 of layer4's max|g|:
+# at random init layer4's gradients nearly cancel over the batch's
+# positions, and the one to three ReLU elements that f32 rounding puts on
+# the other side of 0 move them that far, on either device
+# (tools/step_conditioning.py).  The same bars hold the card's float64
+# step (compute_dtype 'float64') against the CPU's.
 CARD_CPU_LOSS_TOL, CARD_CPU_GRAD_TOL = 1e-4, 1e-3
-CARD_CPU_BATCH = 8
-# K1 ('auto') against cuDNN ('off'), one bf16 step from the fit's weights
-# and the same draws: loss relative gap and max|g_auto - g_off| over the
-# largest |g_off| of layer4 and the head (_grad_gap).  Twice the drift of
-# one bf16 step (cuDNN) from the f32 step on the card, which measured
-# loss 1.806e-2 and gradients 6.58e-2 (K1's own gaps 8.57e-3 and
-# 1.91e-2; NVIDIA H100 80GB HBM3, 700.00 W, B=32, seed 0).
-K1_STEP_LOSS_TOL, K1_STEP_GRAD_TOL = 3.6e-2, 1.3e-1
+CARD_CPU_BATCHES = (8, 32)
+# Every op of layer4 and the head in the card's f32 step (conv, BN,
+# linear: forward, weight, bias and input gradients), recomputed in
+# float64 from its own f32 operands: max|f32 - f64| over max|f64|.
+# Measured 3.963e-6 to 6.188e-6 on the card in three runs (B=8 and 32;
+# NVIDIA H100 80GB HBM3, 700.00 W); TF32 rounds each operand to 2^-11,
+# about 5e-4.
+F32_OP_TOL = 1e-4
+# The card's f32 augmentation against the CPU's on the same uint8 batch and
+# draws, max abs gap in normalized units: the crop's source coordinates
+# part by an f32 ulp, times the pixel slope (measured 8.8e-5).
+AUG_TOL = 1e-3
+# K1 ('auto') against cuDNN ('off'), one bf16 step at B=32: the loss's
+# relative gap and max|g_auto - g_off| over max|g_off| within layer4 and
+# within the head, each bar twice the drift of one bf16 step (cuDNN) from
+# the f32 step measured the same way (NVIDIA H100 80GB HBM3, 700.00 W,
+# seed 0; K1's own gaps in brackets).  At random init: loss 6.236e-4
+# [3.045e-4], layer4 0.4289 [0.4163], head 3.609e-2 [3.582e-2].  From the
+# fit's weights: loss 1.015e-2 [1.331e-2], layer4 5.385e-2 [5.208e-2],
+# head 1.885e-2 [1.701e-2].
+K1_STEP_TOL = {
+    "random_init": {"loss": 1.25e-3, "layer4": 0.86, "head": 7.2e-2},
+    "fit_weights": {"loss": 2.03e-2, "layer4": 0.108, "head": 3.77e-2}}
+# train images/s: fits of TRAIN_TIMED_EPOCHS timed epochs (after one
+# untimed, cuDNN's algorithm search) per batch, K1 on and off in turns
+# (on, off, off, on, ...), TRAIN_PAIRS fits of each
+TRAIN_TIMED_EPOCHS, TRAIN_PAIRS = 3, 3
 
 
 def _train_sets(seed: int):
@@ -1122,8 +1148,7 @@ def _train_sets(seed: int):
     from irp_tpu_torch.config import DatasetInfo
     from irp_tpu_torch.data.pipeline import CachedDataset
 
-    images, labels, _ = _curation_images(seed + 5, N_TRAIN + N_VAL,
-                                         TRAIN_DEVICE)
+    images, labels, _ = _curation_images(seed + 5, N_TRAIN + N_VAL)
     names = tuple(f"class{c}" for c in range(N_CLASSES))
 
     def subset(sl):
@@ -1149,14 +1174,95 @@ def _train_model_cfg(**kw):
                        image_size=TRAIN_IMAGE_SIZE, hidden_dim=512, **kw)
 
 
-def _one_step_grads(cfg, state_dict, images, labels, draws, class_weights,
-                    device):
-    """Loss and trainable gradients of one train step (dropout 0) of a
-    model with ``state_dict`` on ``device``, as host float64 arrays."""
+def _augmented(images, labels, draws, device, dtype=torch.float32):
+    """The step's augmentation (medium, no mixing) of a host uint8 batch on
+    ``device``: (x NHWC, labels)."""
+    from irp_tpu_torch.train.step import StepConfig, augment_mix
+
+    scfg = StepConfig(intensity="medium", out_size=TRAIN_IMAGE_SIZE,
+                      compute_dtype=dtype, dropout_rate=0.0)
+    x, y, _, _ = augment_mix(torch.from_numpy(images).to(device),
+                             torch.from_numpy(labels).long().to(device),
+                             scfg, draws.to(device), None)
+    return x, y
+
+
+def _op_hooks(model, cap: dict) -> list:
+    """Hooks that keep each layer4 and head op's f32 operands: input,
+    output and their gradients."""
+    from irp_tpu_torch.models.classifier import Linear
+    from irp_tpu_torch.models.resnet import BatchNorm2d, Conv2d
+
+    hooks = []
+    for name, mod in model.named_modules():
+        if not (name.startswith(("backbone.layer4", "classifier"))
+                and isinstance(mod, (Conv2d, BatchNorm2d, Linear))):
+            continue
+
+        def fwd(mod, inp, out, name=name):
+            cap[name] = {"x": inp[0].detach(), "y": out.detach()}
+
+        def bwd(mod, gin, gout, name=name):
+            cap[name]["gy"] = gout[0]
+            cap[name]["gx"] = gin[0]
+        hooks += [mod.register_forward_hook(fwd),
+                  mod.register_full_backward_hook(bwd)]
+    return hooks
+
+
+def _op_errors(model, cap: dict) -> dict:
+    """Each captured op recomputed in float64 from its own f32 operands:
+    max|f32 - f64| / max|f64| of its output and of its weight, bias and
+    input gradients; returns the worst op and value."""
+    import torch.nn.functional as F
+
+    from irp_tpu_torch.models.resnet import BatchNorm2d, Conv2d
+
+    def rel(got, want):
+        want = want.detach()
+        return float((got.double() - want).abs().max()
+                     / want.abs().max().clamp_min(1e-300))
+
+    mods = dict(model.named_modules())
+    worst = (0.0, None)
+    for name, c in cap.items():
+        mod = mods[name]
+        x = c["x"].double().requires_grad_(c["gx"] is not None)
+        w = mod.weight.detach().double().requires_grad_()
+        b = (None if mod.bias is None
+             else mod.bias.detach().double().requires_grad_())
+        if isinstance(mod, Conv2d):
+            y = F.conv2d(x, w, None, mod.stride, mod.padding, 1, mod.groups)
+        elif isinstance(mod, BatchNorm2d):
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
+            y = ((x - mean[:, None, None])
+                 * (torch.rsqrt(var + mod.eps) * w)[:, None, None]
+                 + b[:, None, None])
+        else:
+            y = F.linear(x, w, b)
+        y.backward(c["gy"].double())
+        errs = {"output": rel(c["y"], y), "weight": rel(mod.weight.grad,
+                                                        w.grad)}
+        if b is not None:
+            errs["bias"] = rel(mod.bias.grad, b.grad)
+        if c["gx"] is not None:
+            errs["input"] = rel(c["gx"], x.grad)
+        for kind, e in errs.items():
+            if e > worst[0]:
+                worst = (e, f"{name} {kind}")
+    return {"max_rel": worst[0], "worst": worst[1], "ops": len(cap)}
+
+
+def _one_step_grads(cfg, state_dict, x, y, class_weights, device,
+                    op_check: bool = False):
+    """Loss and trainable gradients (host float64) of one train step
+    (dropout 0) of a model with ``state_dict`` on ``device`` from the
+    augmented batch ``x``; with ``op_check`` also :func:`_op_errors` of
+    its layer4 and head ops."""
     from irp_tpu_torch.models.classifier import get_classifier
     from irp_tpu_torch.train.loop import set_mode
-    from irp_tpu_torch.train.step import (StepConfig, augment_mix,
-                                          loss_and_grads)
+    from irp_tpu_torch.train.step import StepConfig, loss_and_grads
 
     model = get_classifier(cfg, device=device)
     model.load_state_dict(state_dict)
@@ -1164,61 +1270,102 @@ def _one_step_grads(cfg, state_dict, images, labels, draws, class_weights,
     dtype = getattr(torch, cfg.compute_dtype)
     scfg = StepConfig(intensity="medium", out_size=cfg.image_size,
                       compute_dtype=dtype, dropout_rate=0.0)
-    x, y, _, _ = augment_mix(torch.from_numpy(images).to(device),
-                             torch.from_numpy(labels).long().to(device), scfg,
-                             draws.to(device), None)
-    loss, _ = loss_and_grads(model, x, y, scfg,
-                             torch.tensor(class_weights, device=device))
+    cap: dict = {}
+    hooks = _op_hooks(model, cap) if op_check else []
+    with warnings.catch_warnings():
+        # layer4's first convs take the frozen prefix's output: no input
+        # gradient, which the full backward hook warns of
+        warnings.filterwarnings("ignore", "Full backward hook is firing")
+        loss, _ = loss_and_grads(model, x.to(device, dtype), y.to(device),
+                                 scfg,
+                                 torch.tensor(class_weights, device=device))
+    for h in hooks:
+        h.remove()
     grads = {n: p.grad.double().cpu().numpy()
              for n, p in model.named_parameters() if p.requires_grad}
+    if op_check:
+        return float(loss), grads, _op_errors(model, cap)
     return float(loss), grads
 
 
-def _grad_gap(got: dict, want: dict) -> dict:
-    """Gradient gaps over the trainable tensors (layer4 and the head):
-    ``max_rel``, the largest |got - want| over the largest |want| of all
-    of them (a tensor's own max|g| is no scale where its exact gradient
-    nearly cancels, as a BatchNorm bias before a train-mode BatchNorm's);
-    ``l2_rel``, the relative L2 gap of all of them together; ``worst``,
-    the tensor where the largest gap is."""
-    scale = max(float(np.abs(w).max()) for w in want.values())
-    gaps = {n: float(np.abs(got[n] - want[n]).max()) for n in want}
-    worst = max(gaps, key=gaps.get)
-    num = sum(float(((got[n] - want[n]) ** 2).sum()) for n in want)
-    den = sum(float((w ** 2).sum()) for w in want.values())
-    return {"max_rel": gaps[worst] / max(scale, 1e-30),
-            "l2_rel": math.sqrt(num / max(den, 1e-300)), "worst": worst}
+def _grad_gap(got: tuple, want: tuple) -> dict:
+    """Gaps of one step (loss, grads) from another: the loss's relative
+    gap; max|got - want| over the largest |want| within layer4 and within
+    the head; and per tensor, over that tensor's own max|want|, the
+    largest (``per_tensor``) and where (``worst``)."""
+    g, w = got[1], want[1]
+
+    def group(names):
+        scale = max(float(np.abs(w[n]).max()) for n in names)
+        return (max(float(np.abs(g[n] - w[n]).max()) for n in names)
+                / max(scale, 1e-300))
+
+    per = {n: float(np.abs(g[n] - w[n]).max())
+           / max(float(np.abs(w[n]).max()), 1e-300) for n in w}
+    worst = max(per, key=per.get)
+    return {"loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+            "layer4": group([n for n in w if ".layer4." in f".{n}"]),
+            "head": group([n for n in w if n.startswith("classifier")]),
+            "per_tensor": per[worst], "worst": worst}
 
 
-def _train_images_per_s(train, val, info, batch: int, fused: str,
-                        seed: int) -> float:
-    """Train images/s of fit at ``batch`` with K1 on ('auto') or off, from
-    its second epoch's CUDA-event time (the first carries cuDNN's
-    algorithm search), eval excluded."""
+def _k1_vs_cudnn(model_cfg, state_dict, x, y, cw) -> dict:
+    """One bf16 step, K1 ('auto') and cuDNN ('off'), and the f32 step, from
+    the same weights and batch: K1's gaps from cuDNN and cuDNN's drift
+    from f32 (:func:`_grad_gap`)."""
+    import dataclasses
+
+    steps = {name: _one_step_grads(cfg, state_dict, x, y, cw, "cuda")
+             for name, cfg in (("auto", model_cfg),
+                               ("off", dataclasses.replace(
+                                   model_cfg, fused_frozen_blocks="off")),
+                               ("f32", _f32(model_cfg)))}
+    finite = all(np.isfinite(g).all() for s in steps.values()
+                 for g in s[1].values())
+    return {"k1_vs_cudnn": _grad_gap(steps["auto"], steps["off"]),
+            "bf16_vs_f32_drift": _grad_gap(steps["off"], steps["f32"]),
+            "finite": finite}
+
+
+def _train_throughput(train, val, info, batch: int, seed: int) -> dict:
+    """Train images/s of fit at ``batch``, K1 on ('auto') and off: per
+    timed epoch (CUDA events around the epoch, eval excluded) of
+    TRAIN_PAIRS fits of each, run in turns; the median, least and most."""
     from irp_tpu_torch.config import TrainConfig
     from irp_tpu_torch.train import fit
 
-    cfg = TrainConfig(batch_size=batch, max_epochs=2, patience=99,
-                      seed=seed, train_samples_per_epoch=max(1024,
-                                                             8 * batch),
+    cfg = TrainConfig(batch_size=batch, max_epochs=1 + TRAIN_TIMED_EPOCHS,
+                      patience=99, seed=seed, train_samples_per_epoch=N_TRAIN,
                       eval_samples=batch)
-    res = fit(train, val, info, _train_model_cfg(fused_frozen_blocks=fused),
-              cfg, device=TRAIN_DEVICE)
-    return (res.steps_per_epoch * batch
-            / (res.history["train_ms"][1] / 1e3))
+    per_epoch = {"on": [], "off": []}
+    order = [("on", "off"), ("off", "on")] * ((TRAIN_PAIRS + 1) // 2)
+    for pair in order[:TRAIN_PAIRS]:
+        for k1 in pair:
+            mcfg = _train_model_cfg(
+                fused_frozen_blocks="auto" if k1 == "on" else "off")
+            res = fit(train, val, info, mcfg, cfg)
+            per_epoch[k1] += [res.steps_per_epoch * batch / (ms / 1e3)
+                              for ms in res.history["train_ms"][1:]]
+    out = {"steps_per_epoch": res.steps_per_epoch,
+           "timed_epochs_per_fit": TRAIN_TIMED_EPOCHS}
+    for k1, v in per_epoch.items():
+        out[f"k1_{k1}"] = {"median": statistics.median(v), "min": min(v),
+                           "max": max(v), "epochs": len(v)}
+    out["on_over_off"] = out["k1_on"]["median"] / out["k1_off"]["median"]
+    return out
 
 
 def phase_train(out: dict, seed: int) -> None:
     """The fine-tune: fit at ResNet50/224, bf16, K1 on ('auto'), medium
     augmentation, batch 32, adam on the OneCycle schedule with class
     weights, 2 epochs of 32 steps with eval on 512 images each, on the
-    card; then the step-level gates and train images/s."""
-    import dataclasses
-
+    card; then the step-level gates at random init and from the fit's
+    weights, and train images/s."""
     from irp_tpu_torch.config import TrainConfig
     from irp_tpu_torch.ops.cuda_image import eval_preprocess
     from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
     from irp_tpu_torch.ops.preprocess import sample_augment_draws
+    from irp_tpu_torch.tools.step_conditioning import relu_masks
     from irp_tpu_torch.train import fit
 
     t0 = time.perf_counter()
@@ -1232,7 +1379,7 @@ def phase_train(out: dict, seed: int) -> None:
     eval_preprocess.launches = 0
     fused_identity_bottleneck.launches = 0
     t0 = time.perf_counter()
-    res = fit(train, val, info, model_cfg, train_cfg, device=TRAIN_DEVICE)
+    res = fit(train, val, info, model_cfg, train_cfg)
     fit_s = time.perf_counter() - t0
     launches = {"eval_preprocess": eval_preprocess.launches,
                 "identity_bottleneck": fused_identity_bottleneck.launches}
@@ -1243,86 +1390,95 @@ def phase_train(out: dict, seed: int) -> None:
     want_k1 = 10 * train_cfg.max_epochs * (steps + eval_batches)
     want_k2 = train_cfg.max_epochs * eval_batches
 
-    # one step from the same weights and draws: K1 against cuDNN (bf16),
-    # the bf16 step's drift from the f32 one, and the f32 step on the card
-    # against the CPU.  The weights are the fit's: at random init the
-    # step's layer4 gradients nearly cancel and two f32 summation orders
-    # already part by 1e-3 of max|g| (printed below, not gated)
-    state_dict = {k: v.detach().cpu().clone()
-                  for k, v in res.state.model.state_dict().items()}
-    b = TRAIN_BATCHES[0]
-    images, labels = train.images[:b], train.labels[:b]
-    draws = sample_augment_draws(torch.Generator().manual_seed(seed), b, 256,
-                                 256, "medium")
+    t0 = time.perf_counter()
     cw = info.class_weights
-    f32_cfg = _f32(model_cfg)
-    step = {}
-    for name, cfg in (("auto", model_cfg),
-                      ("off", dataclasses.replace(
-                          model_cfg, fused_frozen_blocks="off")),
-                      ("f32", f32_cfg)):
-        step[name] = _one_step_grads(cfg, state_dict, images, labels, draws,
-                                     cw, TRAIN_DEVICE)
-    k1_loss = abs(step["auto"][0] - step["off"][0]) / abs(step["off"][0])
-    k1_grad = _grad_gap(step["auto"][1], step["off"][1])
-    drift_loss = abs(step["off"][0] - step["f32"][0]) / abs(step["f32"][0])
-    drift_grad = _grad_gap(step["off"][1], step["f32"][1])
-    n = CARD_CPU_BATCH
-    sub_draws = sample_augment_draws(torch.Generator().manual_seed(seed + 1),
-                                     n, 256, 256, "medium")
-    card = _one_step_grads(f32_cfg, state_dict, images[:n], labels[:n],
-                           sub_draws, cw, TRAIN_DEVICE)
-    cpu = _one_step_grads(f32_cfg, state_dict, images[:n], labels[:n],
-                          sub_draws, cw, "cpu")
-    cpu_loss = abs(card[0] - cpu[0]) / abs(cpu[0])
-    cpu_grad = _grad_gap(card[1], cpu[1])
     init_sd = _random_state_dict(seed)
-    card0 = _one_step_grads(f32_cfg, init_sd, images[:n], labels[:n],
-                            sub_draws, cw, TRAIN_DEVICE)
-    cpu0 = _one_step_grads(f32_cfg, init_sd, images[:n], labels[:n],
-                           sub_draws, cw, "cpu")
+    fit_sd = {k: v.detach().cpu().clone()
+              for k, v in res.state.model.state_dict().items()}
+    f32_cfg, f64_cfg = _f32(model_cfg), _f64(model_cfg)
+    # K1 against cuDNN, at random init and from the fit's weights
+    b = TRAIN_BATCHES[0]
+    x, y = _augmented(train.images[:b], train.labels[:b],
+                      sample_augment_draws(torch.Generator().manual_seed(seed),
+                                           b, 256, 256, "medium"), "cuda")
+    k1 = {state: _k1_vs_cudnn(model_cfg, sd, x, y, cw)
+          for state, sd in (("random_init", init_sd), ("fit_weights",
+                                                         fit_sd))}
+    # at random init: the card's f32 step against the CPU's on the same
+    # ReLU masks and in float64, the card's f32 ops against float64, and
+    # the free f32 readings beside them
+    card_cpu = {}
+    for n in CARD_CPU_BATCHES:
+        draws = sample_augment_draws(torch.Generator().manual_seed(seed + 1),
+                                     n, 256, 256, "medium")
+        imgs, labs = train.images[:n], train.labels[:n]
+        x_cpu, y_cpu = _augmented(imgs, labs, draws, "cpu")
+        x_card, _ = _augmented(imgs, labs, draws, "cuda")
+        aug = float((x_card.cpu() - x_cpu).abs().max())
+        f64 = {dev: _one_step_grads(f64_cfg, init_sd, x_cpu, y_cpu, cw, dev)
+               for dev in ("cuda", "cpu")}
+        masks = {"cpu": [], "cuda": []}
+        with relu_masks(masks["cpu"], record=True):
+            cpu32 = _one_step_grads(f32_cfg, init_sd, x_cpu, y_cpu, cw, "cpu")
+        with relu_masks(masks["cuda"], record=True):
+            *card32, ops = _one_step_grads(f32_cfg, init_sd, x_cpu, y_cpu,
+                                           cw, "cuda", op_check=True)
+        # the card's f32 step on the CPU's ReLU masks: where rounding puts
+        # a pre-activation on the other side of 0, the step's gradients
+        # jump (tools/step_conditioning.py)
+        with relu_masks(masks["cpu"], record=False):
+            held = _one_step_grads(f32_cfg, init_sd, x_cpu, y_cpu, cw, "cuda")
+        card_cpu[n] = {
+            "augment_max_abs": aug,
+            "f32_card_vs_cpu_on_cpu_masks": _grad_gap(held, cpu32),
+            "f32_ops_vs_f64": ops,
+            "f64_card_vs_cpu": _grad_gap(f64["cuda"], f64["cpu"]),
+            "f32_card_vs_cpu": _grad_gap(tuple(card32), cpu32),
+            "relu_elements_masked_differently": sum(
+                int((a.cpu() != b).sum())
+                for a, b in zip(masks["cuda"], masks["cpu"])),
+            "f32_card_vs_f64": _grad_gap(tuple(card32), f64["cpu"]),
+            "f32_cpu_vs_f64": _grad_gap(cpu32, f64["cpu"])}
+    gates_s = time.perf_counter() - t0
 
-    ips = {}
-    for batch in TRAIN_BATCHES:
-        for fused in ("auto", "off"):
-            if batch == train_cfg.batch_size and fused == "auto":
-                ips[f"b{batch}_k1_on"] = steps * batch / (
-                    h["train_ms"][1] / 1e3)
-                continue
-            key = f"b{batch}_k1_{'on' if fused == 'auto' else 'off'}"
-            ips[key] = _train_images_per_s(train, val, info, batch, fused,
-                                           seed)
+    t0 = time.perf_counter()
+    ips = {f"b{batch}": _train_throughput(train, val, info, batch, seed)
+           for batch in TRAIN_BATCHES}
+    ips_s = time.perf_counter() - t0
     checks = {
         "losses_finite": bool(np.isfinite(h["train_loss"]).all()
                               and np.isfinite(h["val_loss"]).all()),
         "loss_falls": h["train_loss"][1] < h["train_loss"][0],
         "k1_ten_per_forward": launches["identity_bottleneck"] == want_k1,
         "k2_once_per_eval_batch": launches["eval_preprocess"] == want_k2,
-        "k1_step_loss_vs_cudnn": k1_loss <= K1_STEP_LOSS_TOL,
-        "k1_step_grads_vs_cudnn": k1_grad["max_rel"] <= K1_STEP_GRAD_TOL,
-        "f32_card_vs_cpu_loss": cpu_loss <= CARD_CPU_LOSS_TOL,
-        "f32_card_vs_cpu_grads": cpu_grad["max_rel"] <= CARD_CPU_GRAD_TOL,
-        "grads_finite": all(np.isfinite(g).all() for s in step.values()
-                            for g in s[1].values()),
     }
+    for state, r in k1.items():
+        checks[f"{state}_grads_finite"] = r["finite"]
+        gap = r["k1_vs_cudnn"]
+        for key, bar in K1_STEP_TOL[state].items():
+            val = gap["loss_rel" if key == "loss" else key]
+            checks[f"{state}_k1_vs_cudnn_{key}"] = val <= bar
+    for n, r in card_cpu.items():
+        checks[f"b{n}_augment_card_vs_cpu"] = r["augment_max_abs"] <= AUG_TOL
+        for name in ("f32_card_vs_cpu_on_cpu_masks", "f64_card_vs_cpu"):
+            checks[f"b{n}_{name}_loss"] = (r[name]["loss_rel"]
+                                           <= CARD_CPU_LOSS_TOL)
+            checks[f"b{n}_{name}_grads_per_tensor"] = (
+                r[name]["per_tensor"] <= CARD_CPU_GRAD_TOL)
+        checks[f"b{n}_f32_ops_vs_f64"] = (r["f32_ops_vs_f64"]["max_rel"]
+                                          <= F32_OP_TOL)
     emit({"phase": "train",
           "model": "ResNet50/224 bf16, K1 'auto', 10 classes, hidden 512",
           "recipe": "medium aug, adam + coupled L2, onecycle, class weights",
           "batch": train_cfg.batch_size, "epochs": train_cfg.max_epochs,
           "steps_per_epoch": steps, "train_images": N_TRAIN,
           "val_images": N_VAL, "setup_s": setup_s, "fit_s": fit_s,
+          "gates_s": gates_s, "throughput_s": ips_s,
           "history": h, "best_val_acc": res.best_val_acc,
           "launches": launches,
           "expected_launches": {"identity_bottleneck": want_k1,
                                 "eval_preprocess": want_k2},
-          "step_k1_vs_cudnn": {"loss_rel": k1_loss, "grads": k1_grad},
-          "step_bf16_vs_f32_drift": {"loss_rel": drift_loss,
-                                     "grads": drift_grad},
-          "step_f32_card_vs_cpu": {"batch": n, "loss_rel": cpu_loss,
-                                   "grads": cpu_grad},
-          "step_f32_card_vs_cpu_random_init": {
-              "loss_rel": abs(card0[0] - cpu0[0]) / abs(cpu0[0]),
-              "grads": _grad_gap(card0[1], cpu0[1])},
+          "step_k1_vs_cudnn": k1, "step_card_vs_cpu_random_init": card_cpu,
           "train_images_per_s": ips, "checks": checks})
     out["train_images_per_s"] = ips
     failed = [k for k, v in checks.items() if not v]
@@ -1357,7 +1513,9 @@ def _device_time(prof, wall_us: float, reps: int) -> dict:
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
     if not spans:
         raise RuntimeError("the profiler recorded no device activity")
     groups: dict = {}
@@ -1407,22 +1565,22 @@ TRAIN_SPLIT = ("augment", "frozen_forward_k1", "layer4_forward",
 
 
 def _train_step_profile(seed: int, batch: int = 256, reps: int = 3) -> dict:
-    """One fit train step at ResNet50/224, bf16, K1 'auto', medium aug,
-    adam: the step written out as train/step.py::train_step runs it, with
-    CUDA events between its parts (TRAIN_SPLIT; the backward of layer4 and
-    of the head is one autograd call), then torch.profiler over whole
-    train_step calls for the device's busy time and idle share."""
+    """One fit train step (train/step.py::train_step) at ResNet50/224,
+    bf16, K1 'auto', medium aug, adam: CUDA events recorded by hooks at the
+    boundaries of its parts (TRAIN_SPLIT): the classifier's forward
+    pre-hook (augmentation done), layer4's (the frozen forward done), the
+    head's first dropout's (layer4 and the pool done), the classifier's
+    backward pre-hook (the loss done), the optimizer's step pre-hook (the
+    backward done); then torch.profiler over unhooked train_step calls for
+    the device's busy time and idle share."""
     from irp_tpu_torch.config import TrainConfig
-    from irp_tpu_torch.models.classifier import (get_classifier,
-                                                 weighted_cross_entropy)
-    from irp_tpu_torch.ops.preprocess import (augment_batch_fused,
-                                              sample_augment_draws)
+    from irp_tpu_torch.models.classifier import get_classifier
     from irp_tpu_torch.train.loop import set_mode
     from irp_tpu_torch.train.state import create_train_state
     from irp_tpu_torch.train.step import StepConfig, train_step
 
     cfg = _train_model_cfg(fused_frozen_blocks="auto")
-    model = get_classifier(cfg, device="cuda")
+    model = get_classifier(cfg)
     model.load_state_dict(_random_state_dict(seed))
     set_mode(model, True)
     state = create_train_state(model, TrainConfig(batch_size=batch), cfg, 8)
@@ -1430,41 +1588,50 @@ def _train_step_profile(seed: int, batch: int = 256, reps: int = 3) -> dict:
     images = torch.from_numpy(images).cuda()
     labels = torch.from_numpy(labels).long().cuda()
     cw = torch.ones(N_CLASSES, device="cuda")
-    bf16 = torch.bfloat16
-    scfg = StepConfig(intensity="medium", out_size=224, compute_dtype=bf16,
+    scfg = StepConfig(intensity="medium", out_size=224,
+                      compute_dtype=torch.bfloat16,
                       dropout_rate=cfg.dropout_rate)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for _ in range(2):  # warm (cuDNN algorithm search)
+
+    def step():
         train_step(state, images, labels, scfg, cw, gen)
+
+    for _ in range(2):  # warm (cuDNN algorithm search)
+        step()
+    marks: list = []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    hooks = [model.register_forward_pre_hook(mark),
+             model.backbone.layer4[0].register_forward_pre_hook(mark),
+             model.classifier[0].register_forward_pre_hook(mark),
+             model.register_full_backward_pre_hook(mark),
+             state.optimizer.torch_opt.register_step_pre_hook(mark)]
     split = {name: [] for name in TRAIN_SPLIT}
     for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(TRAIN_SPLIT) + 1)]
-        ev[0].record()
-        draws = sample_augment_draws(gen, batch, 256, 256, "medium")
-        x = augment_batch_fused(images, draws, "medium", 224, dtype=bf16,
-                                work_dtype=bf16)
-        ev[1].record()
-        state.optimizer.zero_grad()
-        frozen = model.backbone.forward_frozen(x.permute(0, 3, 1, 2))
-        ev[2].record()
-        feats = model.backbone.forward_trainable(frozen)
-        ev[3].record()
-        loss = weighted_cross_entropy(
-            model.head(feats, scfg.dropout_rate, None, gen), labels, cw)
-        ev[4].record()
-        loss.backward()
-        ev[5].record()
-        state.apply_gradients()
-        ev[6].record()
-        ev[6].synchronize()
+        marks.clear()
+        mark()
+        with warnings.catch_warnings():
+            # the classifier's input has no gradient, which the backward
+            # pre-hook warns of
+            warnings.filterwarnings("ignore", "Full backward hook")
+            step()
+        mark()
+        torch.cuda.synchronize()
+        if len(marks) != len(TRAIN_SPLIT) + 1:
+            raise RuntimeError(f"train step split: {len(marks) - 2} of "
+                               f"{len(TRAIN_SPLIT) - 1} hooks fired")
         for i, name in enumerate(TRAIN_SPLIT):
-            split[name].append(ev[i].elapsed_time(ev[i + 1]))
+            split[name].append(marks[i].elapsed_time(marks[i + 1]))
+    for h in hooks:
+        h.remove()
     split_ms = {name: statistics.median(v) for name, v in split.items()}
-    traced = _profiled(lambda: train_step(state, images, labels, scfg, cw,
-                                          gen), reps)
     return {"batch": batch, "reps": reps, "split_ms": split_ms,
-            "split_total_ms": sum(split_ms.values()), **traced}
+            "split_total_ms": sum(split_ms.values()),
+            **_profiled(step, reps)}
 
 
 def phase_profile(out: dict, seed: int, batch: int = 64, reps: int = 5
@@ -1495,6 +1662,12 @@ def _f32(cfg):
     return dataclasses.replace(cfg, compute_dtype="float32",
                                precision="highest",
                                fused_frozen_blocks="off")
+
+
+def _f64(cfg):
+    import dataclasses
+
+    return dataclasses.replace(_f32(cfg), compute_dtype="float64")
 
 
 def main(argv=None) -> int:

@@ -78,7 +78,9 @@ class ModelConfig:
     # 'trainable_only': frozen stages' BN stays in inference form, even
     # under .train(); 'all': batch statistics everywhere in train mode.
     bn_stats_mode: str = "trainable_only"
-    compute_dtype: str = "bfloat16"  # params stay f32
+    # params stay f32; 'float64' (the port only) is a reference precision
+    # for checks: statistics, pool and logits stay in float64 too
+    compute_dtype: str = "bfloat16"
     # 'default' or 'highest' (no TF32 in f32 convs and matmuls on CUDA).
     precision: str = "default"
     fused_frozen_blocks: str = "off"

@@ -26,9 +26,10 @@ import torch.nn.functional as F
 from irp_tpu_torch._kernels import resolve_device
 from irp_tpu_torch.config import FUSED_MODES, ModelConfig
 from irp_tpu_torch.models.resnet import (BOTTLENECK_DEPTHS, STAGE_NAMES,
-                                         ResNet, lecun_normal_)
+                                         ResNet, at_least_f32, lecun_normal_)
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
 
 
 class Linear(nn.Linear):
@@ -193,7 +194,7 @@ class Classifier(nn.Module):
         y = relu(dense1(y))
         if self.training:
             y = drop2(y, rate, masks[1], generator)
-        return dense2(y).float()
+        return at_least_f32(dense2(y))
 
     def features(self, x):
         """Headless forward in eval form (inference BN), f32 (B, F): the
@@ -203,7 +204,7 @@ class Classifier(nn.Module):
             self.eval()
         try:
             with self.precision_scope(x):
-                return self.backbone(x).float()
+                return at_least_f32(self.backbone(x))
         finally:
             if training:
                 self.train()

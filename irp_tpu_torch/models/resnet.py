@@ -70,8 +70,14 @@ class Conv2d(nn.Conv2d):
         lecun_normal_(self.weight, fan_in, generator)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as is in float64 (the reference precision a
+    float64 ``compute_dtype`` keeps end to end)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm in f32, output cast to ``compute_dtype``.  ``frozen``
+    """BatchNorm in f32 (f64 for f64 inputs), output cast to ``compute_dtype``.  ``frozen``
     keeps it in inference form (running stats, no updates) under
     ``.train()``.
 
@@ -91,10 +97,13 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         if not self.training or self.frozen:
-            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
+            xf = at_least_f32(x)
+            dt = xf.dtype
+            y = F.batch_norm(xf, self.running_mean.to(dt),
+                             self.running_var.to(dt), self.weight.to(dt),
+                             self.bias.to(dt), False, 0.0, self.eps)
             return y.to(self.compute_dtype)
-        xf = x.float()
+        xf = at_least_f32(x)
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
@@ -320,4 +329,4 @@ class ResNet(nn.Module):
         for name in STAGE_NAMES[self.frozen_prefix:]:
             for block in getattr(self, name):
                 x = block(x)
-        return x.float().mean(dim=(2, 3)).to(self.compute_dtype)
+        return at_least_f32(x).mean(dim=(2, 3)).to(self.compute_dtype)

@@ -1,18 +1,19 @@
 """Training state and optimizer (the JAX package's ``train/state.py``).
 
-The optimizer is the JAX package's optax chain written out over the
-trainable parameters (``trainable_mask``), one fused ``torch._foreach_*``
-op per term, in optax's order of operations:
+The optimizer is the JAX package's optax chain as the torch optimizer that
+computes it over the trainable parameters (``trainable_mask``):
 
-- 'adam' (torch ``Adam(weight_decay=wd)``): g + wd * p enters the moments;
-- 'adamw': the Adam direction, then + wd * p (decoupled);
-- 'sgd': momentum 0.9 over g + wd * p (torch SGD, dampening 0);
+- 'adam': ``torch.optim.Adam(weight_decay=wd)``, g + wd * p enters the
+  moments (optax ``add_decayed_weights`` then ``adam``);
+- 'adamw': ``torch.optim.AdamW``, decay after the Adam direction;
+- 'sgd': ``torch.optim.SGD``, momentum 0.9 over g + wd * p, dampening 0;
 
-then the update is scaled by the schedule's shape at the step count (peak
-1.0, ``_schedule_shape``) and by -lr.  lr and wd are plain attributes
-written at run time (:func:`set_opt_hyperparams`), the schedule's value is
-a host float, so a step never waits on the device.  Frozen parameters are
-not in the optimizer at all.
+with the group's learning rate set before each step to lr times the
+schedule's shape at the step count (peak 1.0, ``_schedule_shape``), as
+optax scales the update by the schedule and by -lr.  lr and wd are plain
+attributes written at run time (:func:`set_opt_hyperparams`), the
+schedule's value is a host float, so a step never waits on the device.
+Frozen parameters are not in the optimizer at all.
 
 ``ema_decay`` > 0 tracks an EMA of the post-update trainable parameters
 (``Optimizer.ema``, as the JAX package's ``_params_ema`` chain slot; a
@@ -69,7 +70,10 @@ def _schedule_shape(schedule: str, total_steps: int, steps_per_epoch: int,
 class Optimizer:
     """adam / adamw / sgd over the named trainable parameters, with the
     state the JAX package keeps in opt_state: the step count, the Adam
-    moments ``mu``/``nu`` or the SGD ``trace``, and the EMA."""
+    moments ``mu``/``nu`` (torch's ``exp_avg``/``exp_avg_sq``) or the SGD
+    ``trace`` (``momentum_buffer``), and the EMA."""
+
+    _SLOTS = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer"}
 
     def __init__(self, kind: str, params: Dict[str, torch.nn.Parameter],
                  shape: Callable[[int], float], learning_rate: float,
@@ -84,65 +88,53 @@ class Optimizer:
         self.weight_decay = float(weight_decay)
         self.count = 0
         self.ema_decay = float(ema_decay)
-        zeros = {n: torch.zeros_like(p, memory_format=torch.preserve_format)
-                 for n, p in self.params.items()}
+        plist = list(self.params.values()) or [torch.zeros(0)]
+        cuda = all(p.is_cuda for p in plist)
         if kind == "sgd":
-            self.moments = {"trace": zeros}
+            self.torch_opt = torch.optim.SGD(
+                plist, lr=self.learning_rate, momentum=SGD_MOMENTUM,
+                weight_decay=self.weight_decay, foreach=True)
         else:
-            self.moments = {"mu": zeros,
-                            "nu": {n: torch.zeros_like(t)
-                                   for n, t in zeros.items()}}
+            cls = torch.optim.Adam if kind == "adam" else torch.optim.AdamW
+            self.torch_opt = cls(plist, lr=self.learning_rate,
+                                 betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
+                                 weight_decay=self.weight_decay,
+                                 **({"fused": True} if cuda
+                                    else {"foreach": True}))
         self.ema = ({n: p.detach().clone() for n, p in self.params.items()}
                     if self.ema_decay > 0 else None)
 
-    def _lists(self):
-        names = list(self.params)
-        ps = [self.params[n].detach() for n in names]
-        gs = [torch.zeros_like(p) if self.params[n].grad is None
-              else self.params[n].grad.detach() for n, p in zip(names, ps)]
-        return names, ps, gs
+    @property
+    def moments(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{'mu', 'nu'} or {'trace'} -> state_dict name -> tensor (zeros
+        before the first step)."""
+        kinds = ("trace",) if self.kind == "sgd" else ("mu", "nu")
+        out = {}
+        for kind in kinds:
+            slot = self._SLOTS[kind]
+            out[kind] = {}
+            for n, p in self.params.items():
+                t = self.torch_opt.state.get(p, {}).get(slot)
+                out[kind][n] = torch.zeros_like(p) if t is None else t
+        return out
 
     @torch.no_grad()
     def step(self) -> None:
         """One update from the parameters' ``.grad`` (None counts as 0)."""
-        names, ps, gs = self._lists()
-        if not names:
-            self.count += 1
-            return
-        wd = self.weight_decay
-        if self.kind in ("adam", "sgd"):
-            gs = torch._foreach_add(gs, ps, alpha=wd) if wd else list(gs)
-        if self.kind == "sgd":
-            tr = [self.moments["trace"][n] for n in names]
-            torch._foreach_mul_(tr, SGD_MOMENTUM)
-            torch._foreach_add_(tr, gs)
-            upd = [t.clone() for t in tr]
-        else:
-            mu = [self.moments["mu"][n] for n in names]
-            nu = [self.moments["nu"][n] for n in names]
-            torch._foreach_mul_(mu, ADAM_B1)
-            torch._foreach_add_(mu, torch._foreach_mul(gs, 1.0 - ADAM_B1))
-            torch._foreach_mul_(nu, ADAM_B2)
-            torch._foreach_add_(nu, torch._foreach_mul(
-                torch._foreach_mul(gs, gs), 1.0 - ADAM_B2))
-            t = self.count + 1
-            bc1 = float(torch.tensor(1.0 - ADAM_B1 ** t))
-            bc2 = float(torch.tensor(1.0 - ADAM_B2 ** t))
-            den = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, ADAM_EPS)
-            upd = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(upd, den)
-            if self.kind == "adamw" and wd:
-                torch._foreach_add_(upd, ps, alpha=wd)
-        torch._foreach_mul_(upd, self.shape(self.count))
-        torch._foreach_mul_(upd, -1.0 * self.learning_rate)
-        torch._foreach_add_(ps, upd)
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        group = self.torch_opt.param_groups[0]
+        group["lr"] = self.learning_rate * float(self.shape(self.count))
+        group["weight_decay"] = self.weight_decay
+        if self.params:
+            self.torch_opt.step()
         self.count += 1
-        if self.ema is not None:
+        if self.ema is not None and self.params:
+            names = list(self.params)
             ema = [self.ema[n] for n in names]
-            torch._foreach_add_(ema, torch._foreach_mul(
-                torch._foreach_sub(ps, ema), 1.0 - self.ema_decay))
+            torch._foreach_lerp_(ema, [self.params[n].detach()
+                                       for n in names], 1.0 - self.ema_decay)
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -162,22 +154,31 @@ class Optimizer:
     def load_state_dict(self, state: dict) -> None:
         """Restore the count, lr, wd, moments and EMA (tensors copied into
         this optimizer's own, on their device)."""
-        if set(state["moments"]) != set(self.moments):
+        kinds = set(self.moments)
+        if set(state["moments"]) != kinds:
             raise ValueError(f"optimizer state holds "
                              f"{sorted(state['moments'])}, this "
-                             f"{self.kind} optimizer {sorted(self.moments)}")
-        for kind, tensors in self.moments.items():
-            for n, t in tensors.items():
-                t.copy_(state["moments"][kind][n])
+                             f"{self.kind} optimizer {sorted(kinds)}")
         if (state.get("ema") is None) != (self.ema is None):
             raise ValueError("optimizer state and optimizer disagree on "
                              "the EMA")
-        if self.ema is not None:
-            for n, t in self.ema.items():
-                t.copy_(state["ema"][n])
         self.count = int(state["count"])
         self.learning_rate = float(state["learning_rate"])
         self.weight_decay = float(state["weight_decay"])
+        fused = bool(self.torch_opt.defaults.get("fused"))
+        for n, p in self.params.items():
+            slots = self.torch_opt.state[p]
+            for kind in kinds:
+                slots[self._SLOTS[kind]] = torch.empty_like(p).copy_(
+                    state["moments"][kind][n])
+            if self.kind != "sgd":
+                # torch keeps Adam's step on the device only when fused
+                slots["step"] = torch.tensor(
+                    float(self.count), dtype=torch.float32,
+                    device=p.device if fused else "cpu")
+        if self.ema is not None:
+            for n, t in self.ema.items():
+                t.copy_(state["ema"][n])
 
 
 def make_optimizer(model: torch.nn.Module, train_cfg: TrainConfig,

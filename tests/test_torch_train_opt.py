@@ -201,3 +201,52 @@ def test_bn_stats_ema_and_eval_view():
         torch.testing.assert_close(dict(m.named_parameters())[
             "classifier.4.bias"].detach(), before - 0.05)
     torch.testing.assert_close(p.detach(), before - 0.1)
+
+
+def _optimizer(kind, device="cpu"):
+    jcfg = JaxModelConfig(depth=18, num_classes=3, image_size=32,
+                          compute_dtype="float32",
+                          trainable_stages=("layer4",))
+    model = torch_model(jcfg, perturbed_variables(jcfg, 0)).to(device)
+    tc = TrainConfig(optimizer=kind, schedule="onecycle", learning_rate=3e-3,
+                     weight_decay=1e-2, max_epochs=2, ema_decay=0.9)
+    return model, tstate.make_optimizer(
+        model, tc, ModelConfig(**dataclasses.asdict(jcfg)), 3)
+
+
+def _grad_steps(opt, rng, n):
+    for _ in range(n):
+        for p in opt.params.values():
+            p.grad = torch.from_numpy(
+                rng.normal(0, 1e-2, tuple(p.shape)).astype(np.float32)).to(
+                    p.device)
+        opt.step()
+
+
+@pytest.mark.parametrize("kind", ["adam", "adamw", "sgd"])
+def test_optimizer_state_round_trip_resumes_bit_exact(kind):
+    """The moments live in the torch optimizer's state (exp_avg /
+    exp_avg_sq / momentum_buffer); a fresh optimizer loaded from a
+    mid-run state_dict continues bit for bit as the uninterrupted one."""
+    model, opt = _optimizer(kind)
+    _grad_steps(opt, np.random.default_rng(0), 3)
+    slots = ("momentum_buffer",) if kind == "sgd" else ("exp_avg",
+                                                        "exp_avg_sq")
+    p = next(iter(opt.params.values()))
+    for slot, view in zip(slots, opt.moments.values()):
+        assert torch.equal(opt.torch_opt.state[p][slot],
+                           next(iter(view.values())))
+    saved = opt.state_dict()
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    _grad_steps(opt, np.random.default_rng(1), 3)
+    model2, opt2 = _optimizer(kind)
+    model2.load_state_dict(weights)
+    opt2.load_state_dict(saved)
+    _grad_steps(opt2, np.random.default_rng(1), 3)
+    assert opt2.count == opt.count == 6
+    for (n, a), b in zip(model.state_dict().items(),
+                         model2.state_dict().values()):
+        assert torch.equal(a, b), n
+    for n, t in opt.ema.items():
+        assert torch.equal(t, opt2.ema[n]), n
+

@@ -148,6 +148,40 @@ def test_one_f32_step_matches_jax(weighted):
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), buf
 
 
+def test_float64_step_matches_the_jax_f32_step():
+    """compute_dtype 'float64' (the reference precision of the card's
+    step gate) keeps float64 through BN, the pool and the logits, and its
+    step is JAX's f32 'highest' step within that test's bars."""
+    cfg = _f32_cfg()
+    variables = perturbed_variables(cfg, 1)
+    images, labels = _batch()
+    key = jax.random.PRNGKey(11)
+    x, y = _jax_input(images, labels, key, cfg)
+    want_loss, want_grads, _ = _jax_loss_and_grads(
+        cfg, variables, x, y, jnp.asarray(CLASS_WEIGHTS))
+    model = torch_model(dataclasses.replace(cfg, compute_dtype="float64"),
+                        variables)
+    set_mode(model, True)
+    scfg = _step_cfg(dataclasses.replace(cfg, compute_dtype="float64"))
+    draws = jax_step_draws(key, "medium", 8, 64, 64)
+    xt, ya, _, _ = augment_mix(torch.from_numpy(images),
+                               torch.from_numpy(labels), scfg, draws, None)
+    assert xt.dtype == torch.float64
+    logits = model(xt.permute(0, 3, 1, 2), 0.0)
+    assert logits.dtype == torch.float64
+    model.zero_grad()
+    loss, _ = loss_and_grads(model, xt, ya, scfg,
+                             torch.from_numpy(CLASS_WEIGHTS))
+    assert loss.dtype == torch.float64
+    assert abs(float(loss) - want_loss) <= 1e-5 * abs(want_loss)
+    want = _named(want_grads)
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            scale = np.abs(want[name]).max()
+            assert np.abs(p.grad.numpy() - want[name]).max() <= 1e-4 * scale
+
+
+
 def test_accumulated_step_matches_jax():
     """grad_accum_steps=2, class weights on: SGD at lr 1 (constant, no
     decay, first step) turns the update into minus the accumulated
@@ -314,3 +348,28 @@ def test_three_sgd_epoch_steps_match_jax():
     for name, t in model.state_dict().items():
         if name in want:
             assert np.abs(t.numpy() - want[name]).max() <= 1e-5, name
+
+
+def test_relu_masks_explain_the_f32_steps_gap_from_float64():
+    """tools/step_conditioning: a step replayed on its own recorded ReLU
+    masks is the same step, and at ResNet50/64 from init, where f32
+    rounding flips a few ReLU elements, the float64 step held to the f32
+    step's masks is within 1e-4 of it (layer4's and the head's max|g|)."""
+    from irp_tpu_torch.tools.step_conditioning import main, relu_masks
+
+    cfg = _f32_cfg()
+    model = torch_model(cfg, perturbed_variables(cfg, 1))
+    set_mode(model, True)
+    x = torch.randn(4, 3, 56, 56)
+    masks = []
+    with relu_masks(masks, record=True):
+        want = model(x, 0.0)
+    with relu_masks(masks, record=False):
+        got = model(x, 0.0)
+    assert len(masks) == 2 + 2 * 8  # stem, head, two per basic block
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    out = main(["--cpu", "--image-size", "64", "--batch", "4"])
+    held = out["f32_vs_f64_on_f32_masks"]
+    assert held["layer4"] <= 1e-4 and held["head"] <= 1e-4
+    assert held["loss_rel"] <= 1e-5
+    assert out["relu_elements_masked_differently"] >= 0
