@@ -5,6 +5,7 @@ paths once on one NVIDIA GPU.
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
   python3 chip_smoke.py --phases device,build,train
+  python3 chip_smoke.py --phases device,build,hyperopt
   python3 chip_smoke.py --phases device,build,profile
 
 Phases, each printing one JSON line:
@@ -19,9 +20,10 @@ Phases, each printing one JSON line:
               the plain version and a PyTorch yardstick call:
               eval_preprocess at B=64, 256 -> 224 bf16 and at its edge
               shapes (K2_EDGE_SHAPES: f32 output, a 250-wide and a 70x90
-              source, a 7-pixel row), 0 bf16 ulp everywhere; identity
-              bottleneck (max|kernel - plain| / max|plain| <= 2^-6, at
-              B=32 and at the edge shapes of its tiling, K1_EDGE_SHAPES;
+              source, a 7-pixel row, the sweep's B=8 and 16), 0 bf16
+              ulp everywhere; identity bottleneck (max|kernel - plain| /
+              max|plain| <= 2^-6, at B=32 and at the edge shapes of its
+              tiling and the sweep's B=8 and 16, K1_EDGE_SHAPES;
               yardstick the unfused cuDNN block); pairwise_topk on one
               row block of each kNN of the curation path (K3_SHAPES:
               1024 x 26,179 at D = 50, k = 15 and at D = 2, k = 75; 1024
@@ -84,7 +86,27 @@ Phases, each printing one JSON line:
               from the f32 step (K1_STEP_*_TOL); the f32 'highest' step on
               the card against the CPU's (CARD_CPU_*_TOL).  Prints train
               images/s at batch 32 and 256 with K1 on and off.
-8. profile  — only when named in --phases: torch.profiler over batches
+8. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
+              WebDataset shards of 3,072 synthetic 256x256 JPEGs written
+              from the seed by the port's ShardWriter, then
+              hyperopt_cli.main --quick (B=16, 2 epochs) with 3 trials x 3
+              folds and the CLI's defaults (K1 'off'), the study and the
+              tracking runs in a temporary directory; (b) the same study
+              resumed through run_kfold_optimization with
+              fused_frozen_blocks='auto' for one more trial; (c) the fold
+              pool at N = 26,179 (images made on the card, 27 shards of
+              ids, no decode): its upload and select_fold for 3 folds.
+              Gates: 4 trials in the database and the resume's "Loaded
+              existing study with 3 previous trials"; all 4 trials
+              COMPLETE, each value finite; recommended_epochs in each
+              complete run's tracking params; K2 once per eval batch
+              and K1 10 per forward in (b), 0 in (a); one pool upload
+              per run (upload_bytes = N x 196,608 + 4 N) and no per-fit
+              upload; each fold's prefix labels equal to
+              subset_by_shards's as a multiset.  Prints
+              seconds per trial and per fold-fit, the pool's upload and
+              select_fold times, and peak memory.
+9. profile  — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -102,6 +124,8 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
+import functools
 import io
 import json
 import math
@@ -125,7 +149,7 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
 
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PHASES = ("device", "build", "kernels", "serve", "curation", "bench",
-          "train")
+          "train", "hyperopt")
 EXTRA_PHASES = ("profile",)  # run only when named in --phases
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -137,11 +161,12 @@ K1_TOL = 2.0 ** -6
 # tile (3x3), ragged last bands (13 = 8 + 5, 17 = 6 + 6 + 5), M=512
 # (ResNet50's layer4 when frozen), a band the kernel narrows to fit its
 # shared memory (24x24 at M=512), and the ResNet50 shapes at B=1 and 3
+# and at the hyperopt sweep's batches 8 and 16 (B=32 is _k1_case's)
 K1_EDGE_SHAPES = ((2, 8, 8, 64, 64), (2, 14, 14, 256, 64), (2, 4, 4, 128, 128),
                   (2, 3, 3, 64, 128), (2, 7, 7, 1024, 256),
                   (2, 13, 13, 1024, 256), (3, 17, 17, 512, 128),
                   (2, 7, 7, 2048, 512), (1, 24, 24, 2048, 512)) + tuple(
-    (b, h, w, c, m) for b in (1, 3)
+    (b, h, w, c, m) for b in (1, 3, 8, 16)
     for _, h, w, c, m, _ in (("layer1", 56, 56, 256, 64, 2),
                              ("layer2", 28, 28, 512, 128, 3),
                              ("layer3", 14, 14, 1024, 256, 5)))
@@ -208,8 +233,12 @@ def phase_build(out: dict) -> None:
 
 # (B, H, W, out_size, dtype): K2 off the cache geometry, each held to 0
 # bf16 ulp: f32 output; a 250-wide source and a 70x90 one, whose rows and
-# crop offsets are not 16-byte multiples; a 7-pixel output row
+# crop offsets are not 16-byte multiples; a 7-pixel output row; the
+# hyperopt sweep's eval batches 8 and 16 (B=32 batches are the train
+# phase's, B=64 is _k2_entry's main case)
 K2_EDGE_SHAPES = ((3, 256, 256, 224, torch.float32),
+                  (8, 256, 256, 224, torch.bfloat16),
+                  (16, 256, 256, 224, torch.bfloat16),
                   (2, 250, 250, 224, torch.bfloat16),
                   (3, 70, 90, 64, torch.bfloat16),
                   (2, 20, 20, 7, torch.bfloat16))
@@ -1486,6 +1515,317 @@ def phase_train(out: dict, seed: int) -> None:
         raise RuntimeError(f"train checks failed: {failed}")
 
 
+# the sweep: synthetic JPEG shards at 256 px, 10 classes
+HPO_SHARDS, HPO_PER_SHARD = 12, 256  # 3,072 images
+HPO_TRIALS, HPO_K = 3, 3  # then one more trial resumed with K1 on
+# the fold pool at the reference dataset's size, in 27 shards of ids
+POOL_N, POOL_SHARDS = 26_179, 27
+
+
+def _write_shards(seed: int, root: str) -> list:
+    """HPO_SHARDS x HPO_PER_SHARD class-pattern JPEGs (the curation
+    phase's images, made on the card from the seed) as WebDataset shards
+    through the port's ShardWriter."""
+    from PIL import Image
+
+    from irp_tpu_torch.data.tar import ShardWriter
+
+    n = HPO_SHARDS * HPO_PER_SHARD
+    images, labels, _ = _curation_images(seed + 7, n)
+    writer = ShardWriter(root, "train", HPO_PER_SHARD)
+    with writer:
+        for i in range(n):
+            buf = io.BytesIO()
+            Image.fromarray(images[i]).save(buf, format="JPEG", quality=90)
+            name = f"class{int(labels[i])}"
+            key = f"{name}_{i:06d}"
+            writer.write({"__key__": key, "jpg": buf.getvalue(), "cls": name,
+                          "json": {"class": name, "id": key}})
+    return writer.shard_paths
+
+
+class _SweepProbe:
+    """Counts and times what one sweep runs, by wrapping the names the
+    objective and the runner call: each trial, each fold-fit (and its
+    train epochs' device time, from its history), each pool
+    built (its upload time and bytes) and each select_fold (its time, and
+    whether the prefix's labels are the fold subset's as a multiset).
+    The wrappers are taken off on exit."""
+
+    def __init__(self):
+        self.trial_s, self.fit_s, self.pools = [], [], []
+        self.train_s = []  # the train epochs' time within each fold-fit
+        self.select_ms, self.prefix_ok, self.per_fit_uploads = [], [], 0
+
+    def __enter__(self):
+        from irp_tpu_torch.data import pipeline
+        from irp_tpu_torch.hyperopt import objective, runner
+
+        fit_mod = sys.modules["irp_tpu_torch.train.fit"]
+        probe = self
+
+        def timed(fn, sink):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    result = fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    sink.append(time.perf_counter() - t0)
+                if hasattr(result, "history"):  # a fold-fit's train epochs
+                    probe.train_s.append(sum(result.history["train_ms"])
+                                         / 1e3)
+                return result
+            return run
+
+        def pool(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = pipeline.HBMFoldPool(*a, **kw)
+            torch.cuda.synchronize()
+            probe.pools.append({"upload_s": time.perf_counter() - t0,
+                                "upload_bytes": p.upload_bytes,
+                                "n": p.local_count})
+            return p
+
+        select = pipeline.HBMFoldPool.select_fold
+
+        def select_fold(pool_self, shards):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            view = select(pool_self, shards)
+            torch.cuda.synchronize()
+            probe.select_ms.append((time.perf_counter() - t0) * 1e3)
+            got = np.sort(pool_self.labels[:view.local_count].cpu().numpy())
+            want = np.sort(pool_self._cached.subset_by_shards(
+                shards, with_images=False).labels)
+            probe.prefix_ok.append(bool(np.array_equal(got, want)))
+            return view
+
+        dataset = fit_mod.HBMDataset
+
+        def per_fit(*a, **kw):
+            probe.per_fit_uploads += 1
+            return dataset(*a, **kw)
+
+        self._undo = []
+        for owner, name, new in (
+                (runner, "objective_kfold",
+                 timed(runner.objective_kfold, self.trial_s)),
+                (objective, "fit", timed(objective.fit, self.fit_s)),
+                (objective, "HBMFoldPool", pool),
+                (pipeline.HBMFoldPool, "select_fold", select_fold),
+                (fit_mod, "HBMDataset", per_fit)):
+            self._undo.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+
+    def summary(self) -> dict:
+        return {"trials": len(self.trial_s), "trial_s": self.trial_s,
+                "fold_fits": len(self.fit_s), "fold_fit_s": self.fit_s,
+                "fold_fit_train_epochs_s": self.train_s,
+                "pools": self.pools, "select_fold_ms": self.select_ms,
+                "prefix_labels_equal_subset": self.prefix_ok,
+                "per_fit_uploads": self.per_fit_uploads}
+
+
+def _sweep_launches(folds, n_fits_per_fold, batch, eval_samples,
+                    train_samples, epochs, n_samples_of) -> dict:
+    """The launches a sweep's fold-fits make: K2 once per eval batch, and
+    K1 10 per train and eval forward when it is on."""
+    k2 = k1_forwards = 0
+    for val in folds:
+        n_val = sum(n_samples_of[s] for s in val)
+        n_train = sum(n_samples_of.values()) - n_val
+        eval_batches = math.ceil(min(n_val, eval_samples) / batch)
+        steps = min(n_train // batch, max(train_samples // batch, 1))
+        k2 += n_fits_per_fold * epochs * eval_batches
+        k1_forwards += n_fits_per_fold * epochs * (steps + eval_batches)
+    return {"eval_preprocess": k2, "identity_bottleneck": 10 * k1_forwards}
+
+
+def phase_hyperopt(out: dict, seed: int) -> None:
+    """The k-fold sweep on the card: (a) hyperopt_cli --quick, 3 trials x
+    3 folds over 12 JPEG shards of 3,072 images, ResNet50/224 bf16 at the
+    CLI's defaults (K1 'off'); (b) the same study resumed through
+    run_kfold_optimization with fused_frozen_blocks='auto' for one more
+    trial; (c) the fold pool at N = 26,179 (images made on the card, 27
+    shards of ids, no decode): upload and select_fold for each of 3
+    folds."""
+    import contextlib
+    import dataclasses
+
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.cli import hyperopt_cli
+    from irp_tpu_torch.config import HyperoptConfig, ModelConfig
+    from irp_tpu_torch.data.analyze import analyze_webdataset
+    from irp_tpu_torch.data.kfold import create_stratified_kfolds
+    from irp_tpu_torch.data.pipeline import CachedDataset, build_cache
+    from irp_tpu_torch.hyperopt.objective import HyperoptContext, quick_space
+    from irp_tpu_torch.hyperopt.runner import run_kfold_optimization
+    from irp_tpu_torch.hyperopt.study import create_study
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess
+    from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
+
+    checks, report = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        shards = _write_shards(seed, f"{tmp}/shards")
+        report["write_shards_s"] = time.perf_counter() - t0
+        db, cache = f"{tmp}/study.db", f"{tmp}/cache"
+        uri = f"{tmp}/mlruns"
+        tracking.set_tracking_uri(uri)
+        n_of = {s: HPO_PER_SHARD for s in shards}
+        folds = create_stratified_kfolds(shards, k=HPO_K, seed=seed)
+        # quick space: batch 16, 2 epochs; the context's caps 1024 / 512
+        expect = functools.partial(_sweep_launches, folds, batch=16,
+                                   eval_samples=512, train_samples=1024,
+                                   epochs=2, n_samples_of=n_of)
+
+        # (a) the CLI, K1 off
+        eval_preprocess.launches = 0
+        fused_identity_bottleneck.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _SweepProbe() as probe:
+            rc = hyperopt_cli.main([
+                "--data-dir", f"{tmp}/shards", "--quick",
+                "--n-trials", str(HPO_TRIALS), "--k-folds", str(HPO_K),
+                "--first-fold-min-acc", "0", "--storage", db,
+                "--study-name", "smoke", "--cache-dir", cache,
+                "--seed", str(seed)])
+        runs = {"cli": {"seconds": time.perf_counter() - t0, "rc": rc,
+                        "launches": {
+                            "eval_preprocess": eval_preprocess.launches,
+                            "identity_bottleneck":
+                                fused_identity_bottleneck.launches},
+                        "expected_launches": dict(
+                            expect(n_fits_per_fold=HPO_TRIALS),
+                            identity_bottleneck=0),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        **probe.summary()}}
+
+        # (b) resumed with K1 on
+        info = analyze_webdataset(shards)
+        cached = build_cache(shards, info.class_names, cache_dir=cache)
+        hcfg = HyperoptConfig(k_folds=HPO_K, first_fold_min_acc=0.0,
+                              storage=db, study_name="smoke", seed=seed)
+        ctx = HyperoptContext(
+            cached=cached, info=info, hcfg=hcfg,
+            model_base=ModelConfig(num_classes=info.num_classes,
+                                   fused_frozen_blocks="auto"),
+            space_fn=quick_space)
+        printed = io.StringIO()
+        eval_preprocess.launches = 0
+        fused_identity_bottleneck.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _SweepProbe() as probe, contextlib.redirect_stdout(printed):
+            run_kfold_optimization(ctx, n_trials=1)
+        runs["resumed_k1"] = {
+            "seconds": time.perf_counter() - t0,
+            "launches": {"eval_preprocess": eval_preprocess.launches,
+                         "identity_bottleneck":
+                             fused_identity_bottleneck.launches},
+            "expected_launches": expect(n_fits_per_fold=1),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **probe.summary()}
+        trials = create_study("smoke", db).get_trials()
+        client = tracking.TrackingClient(uri)
+        complete = [t for t in trials if t.state == "COMPLETE"]
+        report["trials"] = [{"number": t.number, "state": t.state,
+                             "value": t.value, "params": t.params}
+                            for t in trials]
+        checks["cli_rc_0"] = runs["cli"]["rc"] == 0
+        checks["four_trials"] = len(trials) == HPO_TRIALS + 1
+        # an error after a trial's last fit (the t-bound, the user attrs,
+        # the tracking writes) leaves it FAILED with its launches counted
+        checks["all_trials_complete"] = ([t.state for t in trials]
+                                         == ["COMPLETE"] * (HPO_TRIALS + 1))
+        checks["resume_loaded_3"] = ("Loaded existing study with 3 previous "
+                                     "trials" in printed.getvalue())
+        checks["complete_values_finite"] = bool(complete) and all(
+            math.isfinite(t.value) for t in complete)
+        checks["recommended_epochs_logged"] = all(
+            "tracking_run_id" in t.user_attrs and "recommended_epochs"
+            in client.get_run(t.user_attrs["tracking_run_id"])["params"]
+            for t in complete)
+        image_bytes = len(cached) * 256 * 256 * 3
+        for name, r in runs.items():
+            checks[f"{name}_launches"] = (r["launches"]
+                                          == r["expected_launches"])
+            checks[f"{name}_pool_uploaded_once"] = (
+                len(r["pools"]) == 1 and r["per_fit_uploads"] == 0
+                and r["pools"][0]["upload_bytes"]
+                == image_bytes + len(cached) * 4)
+            checks[f"{name}_prefix_labels"] = (
+                len(r["prefix_labels_equal_subset"]) == r["fold_fits"]
+                and all(r["prefix_labels_equal_subset"]))
+        out["launches"]["hyperopt"] = {
+            key: sum(r["launches"][key] for r in runs.values())
+            for key in ("eval_preprocess", "identity_bottleneck")}
+        del ctx, cached
+
+    # (c) the pool at the reference dataset's size
+    images, labels, _ = _curation_images(seed + 11, POOL_N)
+    paths = tuple(f"pool-{i:06d}.tar" for i in range(POOL_SHARDS))
+    shard_ids = (np.arange(POOL_N) * POOL_SHARDS // POOL_N).astype(np.int32)
+    names = tuple(f"class{c}" for c in range(N_CLASSES))
+    big = CachedDataset(images=images, labels=labels,
+                        keys=[f"img{i}" for i in range(POOL_N)],
+                        class_names=names, shard_ids=shard_ids,
+                        shard_paths=paths)
+    hist = {p: collections.Counter(names[c] for c in labels[shard_ids == i])
+            for i, p in enumerate(paths)}
+    big_folds = create_stratified_kfolds(list(paths), k=HPO_K, seed=seed,
+                                         histograms=hist)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pool_report = {}
+    with _SweepProbe() as probe:
+        from irp_tpu_torch.hyperopt import objective
+
+        pool = objective.HBMFoldPool(big, "cuda", seed=seed)
+        reshuffle_ms = []
+        for f in range(HPO_K):
+            view = pool.select_fold([p for i, fold in enumerate(big_folds)
+                                     if i != f for p in fold])
+            # what fit() does to the view once an epoch
+            t0 = time.perf_counter()
+            view.local_reshuffle(seed + f)
+            torch.cuda.synchronize()
+            reshuffle_ms.append((time.perf_counter() - t0) * 1e3)
+        pool_report = {"n": POOL_N, "shards": POOL_SHARDS,
+                       "upload_s": probe.pools[0]["upload_s"],
+                       "upload_bytes": pool.upload_bytes,
+                       "upload_gb_per_s": pool.upload_bytes
+                       / probe.pools[0]["upload_s"] / 1e9,
+                       "select_fold_ms": probe.select_ms,
+                       "local_reshuffle_ms": reshuffle_ms,
+                       "prefix_labels_equal_subset": probe.prefix_ok,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        pool.release()
+    del pool, view, big, images
+    checks["pool_upload_bytes"] = (pool_report["upload_bytes"]
+                                   == POOL_N * 196_608 + POOL_N * 4)
+    checks["pool_prefix_labels"] = (len(probe.prefix_ok) == HPO_K
+                                    and all(probe.prefix_ok))
+    emit({"phase": "hyperopt",
+          "model": "ResNet50/224 bf16, 10 classes, hidden 512",
+          "sweep": f"{HPO_TRIALS} + 1 trials x {HPO_K} folds, quick space "
+                   "(2 epochs, batch 16, low aug), caps 1024 / 512",
+          "images": HPO_SHARDS * HPO_PER_SHARD, "shards": HPO_SHARDS,
+          **report, "runs": runs, "pool": pool_report, "checks": checks})
+    out["hyperopt"] = {"runs": runs, "pool": pool_report}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"hyperopt checks failed: {failed}")
+
+
 _PROFILE_GROUPS = (
     ("identity_bottleneck (K1)", ("identity_bottleneck",)),
     ("eval_preprocess (K2)", ("eval_preprocess",)),
@@ -1705,6 +2045,8 @@ def main(argv=None) -> int:
         phase_bench(out, args.seed)
     if "train" in phases:
         phase_train(out, args.seed)
+    if "hyperopt" in phases:
+        phase_hyperopt(out, args.seed)
     if "profile" in phases:
         phase_profile(out, args.seed)
     # the bench phase's B=256 times, beside each kernel's yardstick call

@@ -131,3 +131,35 @@ class TrainConfig:
     ema_decay: float = 0.0
     grad_accum_steps: int = 1
     hbm_reshuffle: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class HyperoptConfig:
+    """Settings of the k-fold study (``hyperopt/``), field for field the
+    JAX package's.
+
+    - ``first_fold_min_acc``: tier 2, the floor on fold 0's best accuracy.
+    - ``pruner``: tier 1, 'median' (``MedianPruner(median_startup_trials,
+      median_warmup_steps, 1)``), 'asha' (asynchronous successive
+      halving) or 'none'.
+    - ``progressive_min_trials`` / ``progressive_factor``: tier 3, prune
+      when the running fold average falls below ``factor`` x the median of
+      at least ``min_trials`` completed values.
+    - ``confidence``: the one-sided t-distribution lower bound the
+      objective returns.
+    """
+
+    n_trials: int = 200
+    k_folds: int = 3
+    first_fold_min_acc: float = 95.0
+    pruner: str = "median"  # median | asha | none
+    median_startup_trials: int = 20
+    median_warmup_steps: int = 10
+    asha_min_resource: int = 1  # first rung (epochs)
+    asha_reduction_factor: int = 3  # keep the top 1/3 at each rung
+    progressive_min_trials: int = 20
+    progressive_factor: float = 0.85
+    confidence: float = 0.80
+    storage: str = "optuna_animals10_kfold.db"
+    study_name: str = "animals10_kfold"
+    seed: int = 42

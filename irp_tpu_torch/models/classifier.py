@@ -145,7 +145,8 @@ class Classifier(nn.Module):
                                frozen_prefix=_frozen_prefix(cfg),
                                bn_stats_mode=cfg.bn_stats_mode,
                                precision=cfg.precision,
-                               fused_frozen_blocks=cfg.fused_frozen_blocks)
+                               fused_frozen_blocks=cfg.fused_frozen_blocks,
+                               remat_blocks=cfg.remat_trainable_blocks)
         self.classifier = nn.Sequential(
             Dropout(),
             Linear(self.backbone.num_features, cfg.hidden_dim, dtype),

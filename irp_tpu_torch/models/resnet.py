@@ -13,6 +13,10 @@ names follow torchvision (``conv1``, ``bn1``, ``layer{1..4}.{j}.conv{k}``,
   ``stop_gradient`` cut after the last frozen stage.
 - ``bn_stats_mode='trainable_only'`` keeps the frozen stages' BN in
   inference form even under ``.train()``; 'all' follows ``.train()``.
+- ``remat_blocks`` recomputes each trainable block's activations in the
+  backward (``torch.utils.checkpoint``) instead of storing them, as the
+  JAX package's ``nn.remat`` does; the recompute does not move BN's
+  running statistics a second time.
 - Frozen identity bottlenecks (j > 0 in a frozen stage) may run through
   the fused kernel (``ops/cuda_resnet.py``), under the JAX package's
   eligibility rule: bottleneck depth, plain width, inference-form BN, bf16
@@ -21,11 +25,14 @@ names follow torchvision (``conv1``, ``bn1``, ``layer{1..4}.{j}.conv{k}``,
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
                                            fused_identity_bottleneck)
@@ -86,7 +93,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     the running buffers move by ``momentum`` toward that mean and biased
     variance.  ``F.batch_norm`` would move ``running_var`` toward the
     unbiased variance (n / (n - 1) larger), which the JAX package never
-    does.
+    does.  ``hold_stats`` (set while a checkpointed block recomputes its
+    forward) leaves the running buffers where they are.
     """
 
     def __init__(self, features, compute_dtype=torch.bfloat16,
@@ -94,6 +102,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(features, eps=1e-5, momentum=0.1)
         self.compute_dtype = compute_dtype
         self.frozen = frozen
+        self.hold_stats = False
 
     def forward(self, x):
         if not self.training or self.frozen:
@@ -106,16 +115,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         xf = at_least_f32(x)
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean
-                                    + self.momentum * mean)
-            self.running_var.copy_(keep * self.running_var
-                                   + self.momentum * var)
+        if not self.hold_stats:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + self.momentum * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(self.compute_dtype)
+
+
+@contextlib.contextmanager
+def _stats_held(module: nn.Module):
+    """While a checkpointed block recomputes its forward, its BN layers
+    keep their running statistics (they moved in the first forward)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.hold_stats = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.hold_stats = False
+
+
+def _recompute_contexts(module: nn.Module):
+    """``torch.utils.checkpoint``'s context pair: the first forward as
+    is, the recompute with the BN statistics held."""
+    return contextlib.nullcontext(), _stats_held(module)
 
 
 class BasicBlock(nn.Module):
@@ -236,7 +266,8 @@ class ResNet(nn.Module):
                  frozen_prefix: int = 3,
                  bn_stats_mode: str = "trainable_only",
                  precision: str = "default",
-                 fused_frozen_blocks: str = "off"):
+                 fused_frozen_blocks: str = "off",
+                 remat_blocks: bool = False):
         super().__init__()
         if depth not in STAGE_SIZES:
             raise ValueError(f"unsupported ResNet depth {depth}")
@@ -250,6 +281,7 @@ class ResNet(nn.Module):
         self.depth = depth
         self.frozen_prefix = frozen_prefix
         self.fused_frozen_blocks = fused_frozen_blocks
+        self.remat_blocks = remat_blocks
         self.compute_dtype = dtype
 
         def frozen_bn(frozen_stage: bool) -> bool:
@@ -325,8 +357,17 @@ class ResNet(nn.Module):
 
     def forward_trainable(self, x):
         """The stages after the frozen prefix and the global pool:
-        ``forward(x) == forward_trainable(forward_frozen(x))``."""
+        ``forward(x) == forward_trainable(forward_frozen(x))``.  With
+        ``remat_blocks``, each block's activations are recomputed in the
+        backward instead of stored."""
+        remat = self.remat_blocks and torch.is_grad_enabled()
         for name in STAGE_NAMES[self.frozen_prefix:]:
             for block in getattr(self, name):
-                x = block(x)
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        block, x, use_reentrant=False,
+                        context_fn=functools.partial(_recompute_contexts,
+                                                     block))
+                else:
+                    x = block(x)
         return at_least_f32(x).mean(dim=(2, 3)).to(self.compute_dtype)

@@ -139,7 +139,7 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
         logger=None, on_epoch_end=None, mode: str = "hbm",
         verbose: bool = False, use_class_weights: bool = True,
         restore_from: Optional[str] = None, start_epoch: int = 0,
-        device=None) -> FitResult:
+        device=None, hbm_train=None) -> FitResult:
     """Fine-tune a classifier on ``train_cached``; validate on
     ``val_cached`` (None: no validation, no early stopping, the last
     epoch's weights).  Runs on the CUDA device unless ``device='cpu'``.
@@ -151,8 +151,22 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     crop runs through K2.  ``history`` holds per epoch the train loss and
     accuracy (percent), the val loss and accuracy, and ``train_ms``, the
     train epoch's time on the device (eval excluded).
+
+    ``hbm_train``: a train set already on the device (an
+    :class:`~irp_tpu_torch.data.pipeline.HBMFoldView`), read in place of a
+    new :class:`HBMDataset` upload; it needs mode 'hbm' or 'auto'.
+    ``train_cached`` may then be the metadata-only subset
+    (``subset_by_shards(with_images=False)``), which still gives the
+    steps per epoch.
     """
+    if hbm_train is not None and mode not in ("hbm", "auto"):
+        raise ValueError("hbm_train requires mode='hbm'")
     dev = resolve_device(device)
+    if hbm_train is not None:
+        if torch.device(hbm_train.device).type != dev.type:
+            raise ValueError(f"hbm_train lies on {hbm_train.device}, the "
+                             f"fit runs on {dev}")
+        mode = "hbm"  # already resident: nothing left to decide
     if mode == "auto":
         mode = resolve_fit_mode(train_cached, val_cached, train_cfg, dev)
         if verbose:
@@ -171,7 +185,13 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     if model_cfg.pretrained_path:
         merge_pretrained(model,
                          load_torch_checkpoint(model_cfg.pretrained_path))
-    cache_px = train_cached.images.shape[1] if len(train_cached) else 0
+    if hbm_train is not None:
+        cache_px = hbm_train.px
+    elif train_cached.images is None:
+        raise ValueError("train_cached has no images (metadata-only "
+                         "subset); pass hbm_train or a full subset")
+    else:
+        cache_px = train_cached.images.shape[1] if len(train_cached) else 0
     if cache_px and model_cfg.image_size > cache_px:
         raise ValueError(
             f"model_cfg.image_size={model_cfg.image_size} exceeds the "
@@ -200,7 +220,8 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     train_ms = []
 
     if mode == "hbm":
-        hbm = HBMDataset(train_cached, dev, shuffle_seed=seed)
+        hbm = (hbm_train if hbm_train is not None
+               else HBMDataset(train_cached, dev, shuffle_seed=seed))
         if start_epoch > 0 and train_cfg.hbm_reshuffle:
             # replay the skipped epochs' reshuffles: they compose
             for past in range(1, start_epoch):

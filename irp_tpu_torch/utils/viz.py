@@ -1,9 +1,8 @@
-"""Visualization: sample-image grids.
+"""Visualization: sample-image grids and the sweep's cross-fold curve.
 
-The reference's sample-image grid (data_curation.py:45-87), written to a
-file (Agg backend) so it works headless.  The JAX package's other figures
-(confusion heatmap, training curves) come over with the slices that call
-them.
+Figures are written to files (Agg backend), so they work headless.  The
+JAX package's other figures (confusion heatmap, training curves) come
+over with the slices that call them.
 """
 
 from __future__ import annotations
@@ -40,4 +39,23 @@ def plot_image_grid(images: Sequence[np.ndarray], titles: Sequence[str],
     fig.tight_layout()
     fig.savefig(path)
     plt.close(fig)
+    return path
+
+
+def plot_epoch_mean_std(epochs: Sequence[int], means: Sequence[float],
+                        stds: Sequence[float], path: str,
+                        title: str = "Cross-fold validation accuracy"
+                        ) -> str:
+    """Mean accuracy per epoch with a +-std band."""
+    means = np.asarray(means)
+    stds = np.asarray(stds)
+    plt.figure(figsize=(8, 5))
+    plt.plot(epochs, means, marker="o")
+    plt.fill_between(epochs, means - stds, means + stds, alpha=0.25)
+    plt.xlabel("epoch")
+    plt.ylabel("val acc (%)")
+    plt.title(title)
+    plt.tight_layout()
+    plt.savefig(path)
+    plt.close()
     return path
