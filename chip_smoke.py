@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, curation, benchmark and training
-paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, curation, benchmark, training,
+sweep, final-training and batch-prediction paths once on one NVIDIA
+GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
   python3 chip_smoke.py --phases device,build,train
   python3 chip_smoke.py --phases device,build,hyperopt
+  python3 chip_smoke.py --phases device,build,final
   python3 chip_smoke.py --phases device,build,profile
 
 Phases, each printing one JSON line:
@@ -20,8 +22,9 @@ Phases, each printing one JSON line:
               the plain version and a PyTorch yardstick call:
               eval_preprocess at B=64, 256 -> 224 bf16 and at its edge
               shapes (K2_EDGE_SHAPES: f32 output, a 250-wide and a 70x90
-              source, a 7-pixel row, the sweep's B=8 and 16), 0 bf16
-              ulp everywhere; identity bottleneck (max|kernel - plain| /
+              source, a 7-pixel row, the sweep's B=8 and 16, the train
+              and final phases' B=32, predict_cli's B=256), 0 bf16 ulp
+              everywhere; identity bottleneck (max|kernel - plain| /
               max|plain| <= 2^-6, at B=32 and at the edge shapes of its
               tiling and the sweep's B=8 and 16, K1_EDGE_SHAPES;
               yardstick the unfused cuDNN block); pairwise_topk on one
@@ -106,7 +109,29 @@ Phases, each printing one JSON line:
               subset_by_shards's as a multiset.  Prints
               seconds per trial and per fold-fit, the pool's upload and
               select_fold times, and peak memory.
-9. profile  — only when named in --phases: torch.profiler over batches
+9. final    — final training, test evaluation and batch prediction,
+              ResNet50/224 bf16, 10 classes, random init: 12 train
+              shards (3,072 images) and 4 test shards (1,024 images of
+              the same classes, another seed) written by the port's
+              ShardWriter, a one-trial study (batch 32, lr 1e-3, wd 1e-4,
+              dropout 0.3, medium aug) whose tracking run holds
+              recommended_epochs 6 (FINAL_EPOCHS says why not 2).  (a)
+              final_cli at its defaults (K1 'off', 'hbm') with
+              --checkpoint-dir; (b) train_final_model with K1 'auto'
+              resumed from (a)'s directory after its newest checkpoint is
+              removed; (c) predict_cli --shards with (a)'s
+              final_model.npz at batch 256 (--classes: the shards' labels
+              are class names).  Gates: rc 0, final_epochs, test accuracy
+              >= 90% and the report's equal to it, the confusion matrix's
+              sum, the five artifacts (PNGs open); K2 once per test batch
+              and K1 0 in (a); one epoch and K1 10 per train and eval
+              forward in (b), test accuracy >= 90%; in (c) >= 99.5% of
+              labels equal to (a)'s evaluation, accuracy within 0.5
+              points, K2 4 and K1 40, and the .pth and .npz predictors'
+              probabilities bit-equal on one batch.  Prints the fit's
+              seconds and train images/s, the test evaluation's seconds
+              and images/s, predict_cli's images/s and peak memory.
+10. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -149,8 +174,8 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
 
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PHASES = ("device", "build", "kernels", "serve", "curation", "bench",
-          "train", "hyperopt")
-EXTRA_PHASES = ("profile",)  # run only when named in --phases
+          "train", "hyperopt", "final")
+EXTRA_PHASES = ("profile",)  # run only when named
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
                      ("layer2", 28, 28, 512, 128, 3),
@@ -234,11 +259,13 @@ def phase_build(out: dict) -> None:
 # (B, H, W, out_size, dtype): K2 off the cache geometry, each held to 0
 # bf16 ulp: f32 output; a 250-wide source and a 70x90 one, whose rows and
 # crop offsets are not 16-byte multiples; a 7-pixel output row; the
-# hyperopt sweep's eval batches 8 and 16 (B=32 batches are the train
-# phase's, B=64 is _k2_entry's main case)
+# hyperopt sweep's eval batches 8 and 16, the train and final phases'
+# batch 32 and predict_cli's batch 256 (B=64 is _k2_entry's main case)
 K2_EDGE_SHAPES = ((3, 256, 256, 224, torch.float32),
                   (8, 256, 256, 224, torch.bfloat16),
                   (16, 256, 256, 224, torch.bfloat16),
+                  (32, 256, 256, 224, torch.bfloat16),
+                  (256, 256, 256, 224, torch.bfloat16),
                   (2, 250, 250, 224, torch.bfloat16),
                   (3, 70, 90, 64, torch.bfloat16),
                   (2, 20, 20, 7, torch.bfloat16))
@@ -904,16 +931,20 @@ def phase_serve(out: dict, seed: int) -> None:
         raise RuntimeError(f"serve checks failed: {failed}")
 
 
-def _curation_images(seed: int, n: int):
+def _curation_images(seed: int, n: int, patterns_seed=None):
     """n synthetic 256x256 uint8 images made on the card: N_CLASSES smooth
     base patterns (8x8 noise upsampled), each image its class's pattern
     plus a brightness offset and pixel noise; PLANTED_SHARE of them carry
-    another class's pattern under their label.  Returns host (images,
-    labels, planted)."""
+    another class's pattern under their label.  The patterns are the first
+    draw of the generator seeded with ``seed``, or with ``patterns_seed``
+    when given: another set of images of the same classes.  Returns host
+    (images, labels, planted)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    small = torch.rand(N_CLASSES, 3, 8, 8, generator=g, device="cuda") * 255
+    gp = g if patterns_seed is None else torch.Generator(
+        device="cuda").manual_seed(patterns_seed)
+    small = torch.rand(N_CLASSES, 3, 8, 8, generator=gp, device="cuda") * 255
     bases = F.interpolate(small, size=(256, 256), mode="bilinear",
                           align_corners=False).permute(0, 2, 3, 1)
     labels = torch.randint(0, N_CLASSES, (n,), generator=g, device="cuda")
@@ -1522,17 +1553,19 @@ HPO_TRIALS, HPO_K = 3, 3  # then one more trial resumed with K1 on
 POOL_N, POOL_SHARDS = 26_179, 27
 
 
-def _write_shards(seed: int, root: str) -> list:
-    """HPO_SHARDS x HPO_PER_SHARD class-pattern JPEGs (the curation
-    phase's images, made on the card from the seed) as WebDataset shards
-    through the port's ShardWriter."""
+def _write_shards(seed: int, root: str, prefix: str = "train",
+                  n_shards: int = HPO_SHARDS, patterns_seed=None) -> list:
+    """n_shards x HPO_PER_SHARD class-pattern JPEGs (the curation phase's
+    images, made on the card from the seed; ``patterns_seed`` as in
+    _curation_images) as WebDataset shards ``<prefix>-*.tar`` through the
+    port's ShardWriter."""
     from PIL import Image
 
     from irp_tpu_torch.data.tar import ShardWriter
 
-    n = HPO_SHARDS * HPO_PER_SHARD
-    images, labels, _ = _curation_images(seed + 7, n)
-    writer = ShardWriter(root, "train", HPO_PER_SHARD)
+    n = n_shards * HPO_PER_SHARD
+    images, labels, _ = _curation_images(seed + 7, n, patterns_seed)
+    writer = ShardWriter(root, prefix, HPO_PER_SHARD)
     with writer:
         for i in range(n):
             buf = io.BytesIO()
@@ -1826,6 +1859,306 @@ def phase_hyperopt(out: dict, seed: int) -> None:
         raise RuntimeError(f"hyperopt checks failed: {failed}")
 
 
+# the final run: a one-trial study over 12 train shards and 4 test shards.
+# 6 epochs, not 2: the final stage steps its OneCycle once per epoch over
+# max(epochs, 4) steps, so a 2-epoch run ends at the peak lr, and layer4's
+# BN running statistics trail its weights.  On the card the 2-epoch
+# weights read 65.82% in eval form (K1 off; 72.75% in f32, 99.02% with K1
+# on) and 99.12% once those statistics are recomputed over the train set;
+# at 6 epochs 99.12% either way (python -m irp_tpu_torch.tools.final_bn_check)
+FINAL_TEST_SHARDS = 4  # 1,024 test images of the train shards' classes
+FINAL_BATCH, FINAL_EPOCHS = 32, 6
+FINAL_PARAMS = {"learning_rate": 1e-3, "weight_decay": 1e-4,
+                "dropout_rate": 0.3, "batch_size": FINAL_BATCH,
+                "augmentation_intensity": "medium"}
+FINAL_ARTIFACTS = ("confusion_matrix.png", "correct_classifications.png",
+                   "final_model.npz", "final_model.pth",
+                   "incorrect_classifications.png")
+FINAL_MIN_ACC = 90.0  # percent, on the test set
+PREDICT_AGREEMENT = 0.995  # share of predict_cli labels equal to the eval's
+PREDICT_ACC_GAP = 0.5  # points between predict_cli's accuracy and the eval's
+
+
+class _FinalProbe:
+    """Captures and times what one final run does, by wrapping the names
+    train/final.py calls: the fit (host clock, synchronized, and its
+    result), the test evaluation (its time and EvalResult), the confusion
+    matrix and the FinalResult.  The wrappers are taken off on exit."""
+
+    def __init__(self):
+        self.fits, self.evals, self.cms, self.results = [], [], [], []
+
+    def __enter__(self):
+        from irp_tpu_torch.train import final as final_mod
+
+        def timed(fn, sink):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*a, **kw)
+                torch.cuda.synchronize()
+                sink.append((time.perf_counter() - t0, result))
+                return result
+            return run
+
+        def keep(fn, sink):
+            def run(*a, **kw):
+                result = fn(*a, **kw)
+                sink.append(result)
+                return result
+            return run
+
+        self._undo = []
+        for name, new in (
+                ("fit", timed(final_mod.fit, self.fits)),
+                ("evaluate_full", timed(final_mod.evaluate_full,
+                                        self.evals)),
+                ("confusion_matrix", keep(final_mod.confusion_matrix,
+                                          self.cms)),
+                ("train_final_model", keep(final_mod.train_final_model,
+                                           self.results))):
+            self._undo.append((final_mod, name, getattr(final_mod, name)))
+            setattr(final_mod, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+
+    def summary(self, n_test: int) -> dict:
+        fit_s, fit = self.fits[0]
+        eval_s, _ = self.evals[0]
+        per_epoch = fit.steps_per_epoch * FINAL_BATCH
+        return {"fit_s": fit_s, "epochs": len(fit.history["train_ms"]),
+                "train_ms": fit.history["train_ms"],
+                "train_images_per_s": [per_epoch / (ms / 1e3)
+                                       for ms in fit.history["train_ms"]],
+                "train_loss": fit.history["train_loss"],
+                "test_eval_s": eval_s,
+                "test_images_per_s": n_test / eval_s,
+                "test_acc": self.results[0].test_acc,
+                "test_loss": self.results[0].test_loss}
+
+
+def _png_opens(path: str) -> bool:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im.load()
+        return im.format == "PNG"
+
+
+def _final_world(tmp: str, seed: int, epochs: int) -> dict:
+    """The final phase's inputs under ``tmp``: 12 train shards and
+    FINAL_TEST_SHARDS test shards of the same classes (another seed), a
+    tracking store whose sweep run holds ``recommended_epochs = epochs``,
+    and a study database with one COMPLETE trial of FINAL_PARAMS joined
+    to that run."""
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.hyperopt.study import create_study
+
+    data = f"{tmp}/shards"
+    t0 = time.perf_counter()
+    train_shards = _write_shards(seed, data)
+    # the test set: the train shards' class patterns, other images
+    test_shards = _write_shards(seed + 1, data, "test", FINAL_TEST_SHARDS,
+                                patterns_seed=seed + 7)
+    write_s = time.perf_counter() - t0
+    uri = f"{tmp}/mlruns"
+    tracking.set_tracking_uri(uri)
+    tracking.set_experiment("animals10")
+    with tracking.start_run(run_name="optuna_trial_0_kfold") as run:
+        run.log_params({"recommended_epochs": epochs})
+        sweep_run = run.info.run_id
+    db = f"{tmp}/study.db"
+    study = create_study("smoke_final", db)
+    trial = study.ask()
+    for k, v in FINAL_PARAMS.items():
+        if isinstance(v, float):
+            trial.suggest_float(k, v, v)
+        else:
+            trial.suggest_categorical(k, [v])
+    trial.set_user_attr("tracking_run_id", sweep_run)
+    study.tell(trial, "COMPLETE", 99.0)
+    return {"data": data, "db": db, "uri": uri, "train": train_shards,
+            "test": test_shards, "write_s": write_s}
+
+
+def phase_final(out: dict, seed: int) -> None:
+    """Final training, full test evaluation and batch prediction on the
+    card, ResNet50/224 bf16, 10 classes, random init from the seed: (a)
+    final_cli at its defaults (K1 'off', 'hbm') with --checkpoint-dir
+    over a one-trial study (batch 32, lr 1e-3, wd 1e-4, dropout 0.3,
+    medium aug; recommended_epochs 6 in its tracking run), 12 train shards
+    (3,072 images) and 4 test shards (1,024 images of the same classes,
+    another seed); (b) train_final_model with K1 'auto' resumed from (a)'s
+    directory after its newest checkpoint is removed; (c) predict_cli
+    --shards over the test shards with (a)'s final_model.npz at batch
+    256, and the .pth and .npz predictors on one batch."""
+    import contextlib
+    import csv
+    import os
+
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.cli import final_cli, predict_cli
+    from irp_tpu_torch.config import ModelConfig
+    from irp_tpu_torch.data.analyze import analyze_webdataset
+    from irp_tpu_torch.data.pipeline import build_cache
+    from irp_tpu_torch.hyperopt.study import create_study
+    from irp_tpu_torch.infer import load_predictor
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess
+    from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
+    from irp_tpu_torch.train import final as final_mod
+
+    def zero():
+        eval_preprocess.launches = 0
+        fused_identity_bottleneck.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"eval_preprocess": eval_preprocess.launches,
+                "identity_bottleneck": fused_identity_bottleneck.launches}
+
+    checks, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/ckpt"
+        world = _final_world(tmp, seed, FINAL_EPOCHS)
+        data, db, uri = world["data"], world["db"], world["uri"]
+        train_shards, test_shards = world["train"], world["test"]
+        n_test = FINAL_TEST_SHARDS * HPO_PER_SHARD
+
+        # (a) the CLI at its defaults
+        zero()
+        t0 = time.perf_counter()
+        with _FinalProbe() as probe:
+            rc = final_cli.main(["--data-dir", data, "--storage", db,
+                                 "--study-name", "smoke_final",
+                                 "--cache-dir", f"{tmp}/cache",
+                                 "--checkpoint-dir", ckpt])
+        res_a = probe.results[0]
+        eval_a = probe.evals[0][1]
+        client = tracking.TrackingClient(uri)
+        run_a = client.get_run(res_a.run_id)
+        artifacts = client.list_artifacts(res_a.run_id)
+        runs["cli"] = {"seconds": time.perf_counter() - t0, "rc": rc,
+                       "launches": counts(),
+                       "expected_launches": {
+                           "eval_preprocess": math.ceil(n_test
+                                                        / FINAL_BATCH),
+                           "identity_bottleneck": 0},
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       **probe.summary(n_test),
+                       "final_epochs": run_a["params"].get("final_epochs"),
+                       "report_accuracy": res_a.report["accuracy"],
+                       "confusion_matrix_sum": int(probe.cms[0].sum()),
+                       "artifacts": artifacts}
+        checks["cli_rc_0"] = rc == 0
+        checks["cli_final_epochs"] = (
+            runs["cli"]["final_epochs"] == str(FINAL_EPOCHS)
+            and runs["cli"]["epochs"] == FINAL_EPOCHS)
+        checks["cli_test_acc"] = res_a.test_acc >= FINAL_MIN_ACC
+        checks["cli_report_accuracy"] = math.isclose(
+            res_a.report["accuracy"] * 100.0, res_a.test_acc,
+            rel_tol=1e-12)
+        checks["cli_confusion_matrix_sum"] = (
+            runs["cli"]["confusion_matrix_sum"] == n_test)
+        checks["cli_artifacts"] = sorted(artifacts) == list(FINAL_ARTIFACTS)
+        checks["cli_pngs_open"] = all(
+            _png_opens(client.artifact_path(res_a.run_id, a))
+            for a in artifacts if a.endswith(".png"))
+
+        # (b) resumed for the last epoch with K1 on
+        newest = max(f for f in os.listdir(ckpt) if f.startswith("step_"))
+        os.remove(os.path.join(ckpt, newest))
+        info = analyze_webdataset(train_shards)
+        train_cached = build_cache(train_shards, info.class_names,
+                                   cache_dir=f"{tmp}/cache")
+        test_cached = build_cache(test_shards, info.class_names,
+                                  cache_dir=f"{tmp}/cache")
+        steps = len(train_cached) // FINAL_BATCH
+        zero()
+        t0 = time.perf_counter()
+        with _FinalProbe() as probe:
+            res_b = final_mod.train_final_model(
+                create_study("smoke_final", db), train_cached, test_cached,
+                info, model_base=ModelConfig(num_classes=info.num_classes,
+                                             fused_frozen_blocks="auto"),
+                checkpoint_dir=ckpt, resume=True, verbose=False)
+        runs["resumed_k1"] = {
+            "seconds": time.perf_counter() - t0, "removed": newest,
+            "launches": counts(),
+            "expected_launches": {
+                "eval_preprocess": math.ceil(n_test / FINAL_BATCH),
+                "identity_bottleneck": 10 * (steps + math.ceil(
+                    n_test / FINAL_BATCH))},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **probe.summary(n_test)}
+        checks["resumed_one_epoch"] = runs["resumed_k1"]["epochs"] == 1
+        checks["resumed_test_acc"] = res_b.test_acc >= FINAL_MIN_ACC
+        for name, r in runs.items():
+            checks[f"{name}_launches"] = (r["launches"]
+                                          == r["expected_launches"])
+
+        # (c) batch prediction with (a)'s artifacts
+        npz = client.artifact_path(res_a.run_id, "final_model.npz")
+        pth = client.artifact_path(res_a.run_id, "final_model.pth")
+        preds_csv = f"{tmp}/preds.csv"
+        printed = io.StringIO()
+        zero()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc_c = predict_cli.main([
+                "--weights", npz, "--shards", f"{data}/test-*.tar",
+                "--batch-size", "256", "--classes",
+                ",".join(info.class_names), "--out", preds_csv])
+        seconds_c = time.perf_counter() - t0
+        launches_c = counts()
+        summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+        with open(preds_csv) as f:
+            labels_c = {row["key"]: int(row["label"])
+                        for row in csv.DictReader(f)}
+        eval_labels = dict(zip(test_cached.keys, eval_a.preds.tolist()))
+        agree = (sum(labels_c.get(k) == v for k, v in eval_labels.items())
+                 / len(eval_labels))
+        batch = np.asarray(test_cached.images[:256])
+        p_npz = load_predictor(npz).predict_probs(batch)
+        p_pth = load_predictor(pth).predict_probs(batch)
+        runs["predict"] = {
+            "seconds": seconds_c, "rc": rc_c, "summary": summary,
+            "imgs_per_sec": summary.get("imgs_per_sec"),
+            "label_agreement_with_eval": agree,
+            "launches": launches_c,
+            "expected_launches": {"eval_preprocess": math.ceil(n_test / 256),
+                                  "identity_bottleneck": 10 * math.ceil(
+                                      n_test / 256)},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pth_npz_probs_equal": bool(np.array_equal(p_npz, p_pth))}
+        checks["predict_rc_0"] = rc_c == 0
+        checks["predict_agreement"] = agree >= PREDICT_AGREEMENT
+        checks["predict_accuracy"] = (
+            "accuracy" in summary
+            and abs(100.0 * summary["accuracy"] - res_a.test_acc)
+            <= PREDICT_ACC_GAP)
+        checks["predict_launches"] = (launches_c
+                                      == runs["predict"]["expected_launches"])
+        checks["pth_npz_probs_equal"] = runs["predict"]["pth_npz_probs_equal"]
+        out["launches"]["final"] = {
+            key: sum(r["launches"][key] for r in runs.values())
+            for key in ("eval_preprocess", "identity_bottleneck")}
+        del train_cached, test_cached
+    emit({"phase": "final",
+          "model": "ResNet50/224 bf16, 10 classes, hidden 512, random init",
+          "study": "one COMPLETE trial: " + json.dumps(FINAL_PARAMS)
+                   + f", recommended_epochs {FINAL_EPOCHS}",
+          "train_images": HPO_SHARDS * HPO_PER_SHARD, "test_images": n_test,
+          "write_shards_s": world["write_s"],
+          "runs": runs, "checks": checks})
+    out["final"] = runs
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"final checks failed: {failed}")
+
+
 _PROFILE_GROUPS = (
     ("identity_bottleneck (K1)", ("identity_bottleneck",)),
     ("eval_preprocess (K2)", ("eval_preprocess",)),
@@ -2047,6 +2380,8 @@ def main(argv=None) -> int:
         phase_train(out, args.seed)
     if "hyperopt" in phases:
         phase_hyperopt(out, args.seed)
+    if "final" in phases:
+        phase_final(out, args.seed)
     if "profile" in phases:
         phase_profile(out, args.seed)
     # the bench phase's B=256 times, beside each kernel's yardstick call

@@ -19,17 +19,7 @@ import numpy as np
 from irp_tpu_torch import tracking
 from irp_tpu_torch.hyperopt.distributions import CategoricalDistribution
 from irp_tpu_torch.hyperopt.study import Study, TrialState
-
-
-def _pyplot():
-    """matplotlib's pyplot on the Agg backend, imported when a plot is
-    made (a machine that only runs sweeps needs no matplotlib)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
+from irp_tpu_torch.utils.viz import pyplot as _pyplot
 
 
 def study_statistics(study: Study) -> Dict:

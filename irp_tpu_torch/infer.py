@@ -93,9 +93,21 @@ class PredictionResult:
     labels: np.ndarray                     # (N,) int32
     probs: np.ndarray                      # (N, num_classes) float32
     class_names: Optional[Sequence[str]] = None
+    keys: Optional[List[str]] = None       # file paths / shard keys
 
     def __len__(self):
         return int(self.labels.shape[0])
+
+    def topk(self, k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
+        """(indices (N,k), probabilities (N,k)), descending."""
+        k = min(k, self.probs.shape[1])
+        idx = np.argsort(-self.probs, axis=1)[:, :k]
+        return idx, np.take_along_axis(self.probs, idx, axis=1)
+
+    def label_names(self) -> List[str]:
+        if self.class_names is None:
+            return [str(i) for i in self.labels]
+        return [self.class_names[i] for i in self.labels]
 
 
 @dataclass
@@ -204,11 +216,118 @@ class Predictor:
                     return b
         return self.batch_size
 
-    def predict(self, images_u8: np.ndarray) -> PredictionResult:
-        probs = self.predict_probs(images_u8)
+    def _result(self, probs: np.ndarray,
+                keys: Optional[List[str]]) -> PredictionResult:
         return PredictionResult(
             labels=np.argmax(probs, axis=1).astype(np.int32), probs=probs,
-            class_names=self.class_names)
+            class_names=self.class_names, keys=keys)
+
+    def predict(self, images_u8: np.ndarray,
+                keys: Optional[List[str]] = None) -> PredictionResult:
+        return self._result(self.predict_probs(images_u8), keys)
+
+    def decode_paths(self, paths: Sequence[str],
+                     decoder: str = "auto") -> np.ndarray:
+        """Read and decode image files to the cache geometry
+        (N, 256, 256, 3), 256x256 bilinear as
+        ``data/pipeline.py::decode_to_rgb256``, so that files score as
+        cached training data does.  ``decoder`` 'auto' and 'pil' both
+        decode with PIL (the native decoder is not ported yet)."""
+        from irp_tpu_torch.data.pipeline import decode_blobs
+
+        blobs = []
+        for path in paths:
+            with open(path, "rb") as f:
+                blobs.append(f.read())
+        return decode_blobs(blobs, decoder=decoder)
+
+    def _chunk(self) -> int:
+        """Images decoded at a time: host memory stays O(chunk), not
+        O(dataset)."""
+        return max(self.batch_size, 1024)
+
+    def _probs(self, parts: List[np.ndarray]) -> np.ndarray:
+        return (np.concatenate(parts, axis=0) if parts
+                else np.zeros((0, self.num_classes), np.float32))
+
+    def predict_paths(self, paths: Sequence[str],
+                      decoder: str = "auto") -> PredictionResult:
+        """Score image files (JPEG/PNG/...), decoded as
+        :meth:`decode_paths` says, in chunks of :meth:`_chunk` images."""
+        paths = list(paths)
+        chunk = self._chunk()
+        parts = [self.predict_probs(self.decode_paths(
+            paths[start:start + chunk], decoder=decoder))
+            for start in range(0, len(paths), chunk)]
+        return self._result(self._probs(parts), paths)
+
+    def _label_index(self, cls: Optional[bytes]) -> Optional[int]:
+        """A shard's ``cls`` as a class index: an integer as written, or a
+        class name (what the curation writer stores) looked up in
+        ``class_names``; None when neither applies."""
+        if cls is None:
+            return None
+        text = cls.decode("utf-8").strip()
+        try:
+            return int(text)
+        except ValueError:
+            pass
+        if self.class_names is not None and text in self.class_names:
+            return list(self.class_names).index(text)
+        return None
+
+    def predict_shards(self, shard_paths: Sequence[str] | str,
+                       decoder: str = "auto"
+                       ) -> Tuple[PredictionResult, Optional[np.ndarray]]:
+        """Score a WebDataset shard set: (result, true labels), the labels
+        from the shards' ``cls`` stream when every sample has one that
+        :meth:`_label_index` reads, else None.  A string is a literal
+        path when that file exists (``[`` is a legal file name
+        character), else a glob; samples without an image are
+        skipped."""
+        from irp_tpu_torch.data.pipeline import decode_blobs
+        from irp_tpu_torch.data.tar import iter_samples
+
+        if isinstance(shard_paths, str):
+            if os.path.exists(shard_paths):
+                shard_paths = [shard_paths]
+            elif any(c in shard_paths for c in "*?["):
+                # an unmatched glob means zero samples, not a literal path
+                import glob as globmod
+
+                shard_paths = sorted(globmod.glob(shard_paths))
+            else:
+                shard_paths = [shard_paths]
+
+        chunk = self._chunk()
+        blobs, keys, truths, parts = [], [], [], []
+        have_truth = True
+
+        def flush():
+            if blobs:
+                parts.append(self.predict_probs(decode_blobs(
+                    blobs, decoder=decoder)))
+                blobs.clear()
+
+        for sample in iter_samples(shard_paths):
+            jpg = sample.get("jpg") or sample.get("jpeg") or sample.get("png")
+            if jpg is None:
+                continue
+            keys.append(str(sample.get("__key__", "")))
+            label = self._label_index(sample.get("cls"))
+            if label is None:
+                have_truth = False
+            else:
+                truths.append(label)
+            blobs.append(jpg)
+            if len(blobs) >= chunk:
+                flush()
+        flush()
+        if not keys:
+            return self._result(self._probs([]), []), None
+        truth = (np.asarray(truths, np.int32)
+                 if have_truth and len(truths) == len(keys) else None)
+        return self._result(self._probs(parts), keys), truth
 
 
 def power_of_two_buckets(max_batch: int) -> Tuple[int, ...]:

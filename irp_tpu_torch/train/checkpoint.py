@@ -6,6 +6,12 @@ The key layout is the JAX package's: ``params/<path>`` and
 ``__meta__/<name>`` keys for metadata such as ``image_size``.  So either
 package reads what the other wrote.
 
+A model's final artifacts: :func:`save_model_npz` writes it as such an
+``.npz`` and :func:`export_torch_pth` as a torchvision-keyed ``.pth``
+state_dict of float32 CPU tensors, the key set of the JAX package's
+``export_torch_pth``; the port's ``infer.load_predictor`` and the JAX
+package read both.
+
 Full training-state checkpoints (:func:`save_checkpoint`,
 :func:`latest_checkpoint`, :func:`restore_checkpoint`) hold what a resumed
 ``fit`` needs: parameters and BN statistics, the optimizer's moments and
@@ -77,6 +83,29 @@ def load_weights_meta(path: str) -> dict:
     """The ``meta`` dict a :func:`save_weights_npz` artifact carries (empty
     for artifacts without one)."""
     return load_weights_npz(path, with_meta=True)[2]
+
+
+def export_torch_pth(path: str, model) -> str:
+    """Write ``model`` as a torch state_dict ``.pth`` the reference stack
+    could load: contiguous float32 CPU tensors, without BN's
+    ``num_batches_tracked`` (the JAX package's key set); returns the
+    path."""
+    import torch
+
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous().clone()
+                for k, v in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}, path)
+    return path
+
+
+def save_model_npz(path: str, model, meta: Optional[dict] = None) -> str:
+    """Write ``model`` as a :func:`save_weights_npz` artifact (flax layout,
+    ``meta`` alongside); returns the path."""
+    from irp_tpu_torch.models.convert import state_dict_to_jax_variables
+
+    variables = state_dict_to_jax_variables(model.state_dict())
+    return save_weights_npz(path, variables["params"],
+                            variables["batch_stats"], meta=meta)
 
 
 def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None) -> str:
