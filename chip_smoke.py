@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, curation, benchmark, training,
-sweep, final-training and batch-prediction paths once on one NVIDIA
-GPU.
+"""Drive the PyTorch port's serving (with Grad-CAM, hot reload and the
+exported artifact), curation, benchmark, training, sweep, final-training
+and batch-prediction paths once on one NVIDIA GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
+  python3 chip_smoke.py --phases device,build,explain
   python3 chip_smoke.py --phases device,build,train
   python3 chip_smoke.py --phases device,build,hyperopt
   python3 chip_smoke.py --phases device,build,final
@@ -54,7 +55,30 @@ Phases, each printing one JSON line:
               counters must show the kernels on that path, and a float32
               CPU forward must agree on a small input.  Prints images/s of
               predict_probs at batch 64 and 256 and the /stats latency.
-5. curation — embedding outlier detection at the Animals-10 scale:
+5. explain  — the rest of serving at the same ResNet50/224 ('auto', random
+              weights from the seed and from seed + 1, as .npz): (a)
+              Grad-CAM at batch 8 (K2 once and K1 10 times a batch by the
+              counters) against an unfused float32 Grad-CAM on the card
+              (map max|diff| <= EXPLAIN_CAM_TOL, logits within 2^-5,
+              argmax equal) and a float32 CPU one (maps within 1e-4); (b)
+              the .irpx exported on the card at batch 256 with the ladder
+              (64, 256): its seconds and member bytes, its probabilities
+              bit-equal to the live predictor's at 64 and 256, K2 once and
+              K1 10 times in its forward and in its explain program, which
+              is bit-equal to the live Grad-CAM; images/s of the artifact
+              and the live predictor in turns; the same artifact moved to
+              the CPU equal to a CPU predictor with K1 'on'; (c) a daemon
+              with a reload loader, through ServingClient: 4 clients x 16
+              /explain while 8 clients post /predict (every answer 200
+              with a PNG, K2 once and K1 10 times per dispatch and per
+              explain), then /reload to the seed + 1 weights under the 8
+              clients (no failed request, generation 1, probabilities then
+              equal to a predictor loaded from those weights); (d) the
+              same daemon reloaded to the .irpx (generation 2) answers
+              /explain and /predict, K2 once and K1 10 times each.
+              Prints Grad-CAM ms per batch, /explain p50/p99, export and
+              reload seconds.
+6. curation — embedding outlier detection at the Animals-10 scale:
               26,179 synthetic 256x256 images (10 classes, each a smooth
               pattern plus noise, 1% planted with another class's
               pattern) through extract_features (ResNet50/224 bf16, batch
@@ -71,14 +95,14 @@ Phases, each printing one JSON line:
               (eval_preprocess once per batch, pairwise_topk once per kNN
               row block).  Prints images/s of extract_features, seconds
               per stage and the share of planted images flagged.
-6. bench    — python -m irp_tpu_torch.tools.bench_fused_block: the fused
+7. bench    — python -m irp_tpu_torch.tools.bench_fused_block: the fused
               block beside its bound, the unfused block, the copy floor
               and torch.relu at B=256.
               Gates: the bottleneck's max|kernel - plain| / max|plain|
               from the tool's run within 2^-6 at each shape, and the
               copy floor bit for bit against clamp_min(0) on one B=256
               input per shape.
-7. train    — fit, the fine-tune, at ResNet50/224 bf16 with K1 on
+8. train    — fit, the fine-tune, at ResNet50/224 bf16 with K1 on
               ('auto'), medium augmentation, adam on OneCycle with class
               weights, batch 32, 2 epochs of 32 steps on 2,048 synthetic
               class-pattern images, eval on 512 each epoch.  Gates: finite
@@ -89,7 +113,7 @@ Phases, each printing one JSON line:
               from the f32 step (K1_STEP_*_TOL); the f32 'highest' step on
               the card against the CPU's (CARD_CPU_*_TOL).  Prints train
               images/s at batch 32 and 256 with K1 on and off.
-8. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
+9. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
               WebDataset shards of 3,072 synthetic 256x256 JPEGs written
               from the seed by the port's ShardWriter, then
               hyperopt_cli.main --quick (B=16, 2 epochs) with 3 trials x 3
@@ -109,7 +133,7 @@ Phases, each printing one JSON line:
               subset_by_shards's as a multiset.  Prints
               seconds per trial and per fold-fit, the pool's upload and
               select_fold times, and peak memory.
-9. final    — final training, test evaluation and batch prediction,
+10. final   — final training, test evaluation and batch prediction,
               ResNet50/224 bf16, 10 classes, random init: 12 train
               shards (3,072 images) and 4 test shards (1,024 images of
               the same classes, another seed) written by the port's
@@ -131,7 +155,7 @@ Phases, each printing one JSON line:
               probabilities bit-equal on one batch.  Prints the fit's
               seconds and train images/s, the test evaluation's seconds
               and images/s, predict_cli's images/s and peak memory.
-10. profile — only when named in --phases: torch.profiler over batches
+11. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -173,8 +197,8 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
                                                    n_sets)
 
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
-PHASES = ("device", "build", "kernels", "serve", "curation", "bench",
-          "train", "hyperopt", "final")
+PHASES = ("device", "build", "kernels", "serve", "explain", "curation",
+          "bench", "train", "hyperopt", "final")
 EXTRA_PHASES = ("profile",)  # run only when named
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -773,18 +797,26 @@ def _logits(pred, images: np.ndarray) -> np.ndarray:
         return pred.model(x.permute(0, 3, 1, 2)).float().cpu().numpy()
 
 
-def _images_per_s(pred, images: np.ndarray, reps: int = 5) -> float:
-    pred.predict_probs(images)  # warm (cuDNN algorithm choice)
+def _cuda_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` runs of ``fn`` (after one warm run: cuDNN's
+    algorithm choice), CUDA events; ``fn`` ends on the host (its outputs
+    copied back)."""
+    fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        pred.predict_probs(images)
+        fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return images.shape[0] / (statistics.median(times) / 1e3)
+    return statistics.median(times)
+
+
+def _images_per_s(pred, images: np.ndarray, reps: int = 5) -> float:
+    return images.shape[0] / (_cuda_ms(lambda: pred.predict_probs(images),
+                                       reps) / 1e3)
 
 
 def phase_serve(out: dict, seed: int) -> None:
@@ -929,6 +961,322 @@ def phase_serve(out: dict, seed: int) -> None:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"serve checks failed: {failed}")
+
+
+EXPLAIN_BATCH = 8  # the daemon's Grad-CAM batch, min(8, batch size)
+# Grad-CAM maps of bf16 forwards against the float32 one, max|diff| of
+# maps normalized to [0, 1]: the unfused bf16 map drifted 0.0745 from the
+# f32 map and the fused one 0.0434 (seed 0's 8 images, H100 80GB HBM3 at
+# 700 W), so a bf16 map may lie twice the larger drift from it
+EXPLAIN_CAM_TOL = 0.15
+EXPLAIN_CPU_TOL = 1e-4  # card f32 against CPU f32 Grad-CAM
+EXPORT_BATCHES = (64, 256)  # the .irpx's ladder: the daemon's and bulk
+N_EXPLAIN_CLIENTS, N_EXPLAINS = 4, 16  # explain clients x requests each
+
+
+def _launch_counts() -> dict:
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess
+    from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
+
+    return {"eval_preprocess": eval_preprocess.launches,
+            "identity_bottleneck": fused_identity_bottleneck.launches}
+
+
+def _zero_launch_counts() -> None:
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess
+    from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
+
+    eval_preprocess.launches = 0
+    fused_identity_bottleneck.launches = 0
+
+
+def _prob_rows(rows) -> np.ndarray:
+    """A /predict answer's top-k lists (all classes) as a (N, 10) array."""
+    out = np.zeros((len(rows), N_CLASSES), np.float64)
+    for i, row in enumerate(rows):
+        for item in row["topk"]:
+            out[i, item["label"]] = item["prob"]
+    return out
+
+
+def _traffic(url: str, stop: threading.Event, images, errors: list,
+             answered: list) -> threading.Thread:
+    """A /predict client sending ``images`` in turn until ``stop``."""
+    from irp_tpu_torch.client import ServingClient
+
+    def run():
+        c = ServingClient(url, timeout_s=120)
+        i = 0
+        while not stop.is_set():
+            try:
+                c.predict(images[i % len(images)], topk=1)
+                answered.append(1)
+            except Exception as e:  # noqa: BLE001 — counted as a failure
+                errors.append(repr(e))
+            i += 1
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def phase_explain(out: dict, seed: int) -> None:
+    """Grad-CAM, the exported .irpx and the daemon's /explain and /reload
+    at ResNet50/224 (10 classes, hidden 512, bf16, 'auto')."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _explain_phase(out, seed, tmp)
+
+
+def _explain_phase(out: dict, seed: int, tmp: str) -> None:
+    import zipfile
+
+    from irp_tpu_torch.client import ServingClient
+    from irp_tpu_torch.data.pipeline import decode_blobs
+    from irp_tpu_torch.explain import GradCAM
+    from irp_tpu_torch.export import export_predictor, read_export_meta
+    from irp_tpu_torch.infer import load_predictor, serving_buckets
+    from irp_tpu_torch.serve import make_server
+    from irp_tpu_torch.train.checkpoint import save_weights_npz
+
+    paths = []
+    for s in (seed, seed + 1):
+        variables = _random_variables(s)
+        paths.append(save_weights_npz(f"{tmp}/resnet50_224_seed{s}.npz",
+                                      variables["params"],
+                                      variables["batch_stats"],
+                                      meta={"image_size": 224}))
+    npz, npz1 = paths
+    buckets = serving_buckets("auto", 64)
+    pred = load_predictor(npz, batch_size=64, pad_buckets=buckets)
+    cfg = pred.model.config
+    blobs = _jpegs(seed + 2, 64)
+    images = decode_blobs(blobs)
+    eight = images[:EXPLAIN_BATCH]
+    checks, report = {}, {}
+
+    # (a) Grad-CAM at batch 8 through K2 and K1, against float32
+    gc = GradCAM(pred, batch_size=EXPLAIN_BATCH)
+    _zero_launch_counts()
+    cams, logits = gc.explain(eight)
+    torch.cuda.synchronize()
+    gc_launches = _launch_counts()
+    checks["gradcam_k2_once_k1_ten_per_batch"] = gc_launches == {
+        "eval_preprocess": 1, "identity_bottleneck": 10}
+    f32 = load_predictor(npz, batch_size=64, cfg=_f32(cfg))
+    unfused = load_predictor(npz, batch_size=64, fused_frozen_blocks="off")
+    cams32, logits32 = GradCAM(f32, batch_size=EXPLAIN_BATCH).explain(eight)
+    cams_u, _ = GradCAM(unfused, batch_size=EXPLAIN_BATCH).explain(eight)
+    cam_drift = float(np.abs(cams - cams32).max())
+    cam_drift_unfused = float(np.abs(cams_u - cams32).max())
+    logit_rel = float(np.abs(logits - logits32).max()
+                      / np.abs(logits32).max())
+    cpu = load_predictor(npz, batch_size=2, device="cpu", cfg=_f32(cfg))
+    cams_cpu, _ = GradCAM(cpu).explain(eight[:2])
+    cams32_2, _ = GradCAM(f32, batch_size=2).explain(eight[:2])
+    cpu_diff = float(np.abs(cams_cpu - cams32_2).max())
+    checks.update({
+        "cams_finite_in_0_1": bool(np.isfinite(cams).all() and cams.min() >= 0
+                                   and cams.max() <= 1),
+        "cam_bf16_vs_f32_le_tol": cam_drift <= EXPLAIN_CAM_TOL,
+        "cam_unfused_bf16_vs_f32_le_tol":
+        cam_drift_unfused <= EXPLAIN_CAM_TOL,
+        "logit_rel_err_vs_f32_le_2^-5": logit_rel <= LOGIT_TOL,
+        "argmax_equal_f32": bool(np.array_equal(logits.argmax(1),
+                                                logits32.argmax(1))),
+        "card_f32_vs_cpu_f32_cam_le_1e-4": cpu_diff <= EXPLAIN_CPU_TOL})
+    report["gradcam"] = {
+        "batch": EXPLAIN_BATCH, "launches": gc_launches,
+        "ms_per_batch": _cuda_ms(lambda: gc.explain(eight)),
+        "max_abs_dcam_vs_f32": cam_drift,
+        "max_abs_dcam_unfused_vs_f32": cam_drift_unfused,
+        "logit_rel_err_vs_f32": logit_rel,
+        "max_abs_dcam_card_f32_vs_cpu_f32": cpu_diff}
+    emit({"phase": "explain", "part": "gradcam", **report["gradcam"]})
+
+    # (b) the .irpx, exported on the card
+    live = load_predictor(npz, batch_size=EXPORT_BATCHES[-1],
+                          pad_buckets=EXPORT_BATCHES)
+    irpx = f"{tmp}/resnet50_224.irpx"
+    t0 = time.perf_counter()
+    export_predictor(live, irpx)
+    export_s = time.perf_counter() - t0
+    with zipfile.ZipFile(irpx) as zf:
+        members = {i.filename: i.file_size for i in zf.infolist()}
+    meta = read_export_meta(irpx)
+    t0 = time.perf_counter()
+    art = load_predictor(irpx)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 3)
+    equal = {}
+    for n in EXPORT_BATCHES:
+        batch = rng.integers(0, 256, (n, 256, 256, 3), np.uint8)
+        equal[str(n)] = bool(np.array_equal(art.predict_probs(batch),
+                                            live.predict_probs(batch)))
+    _zero_launch_counts()
+    art.predict_probs(images)
+    torch.cuda.synchronize()
+    art_launches = _launch_counts()
+    cls = np.array([-1, 3, -1, 0, 9, -1, 5, -1], np.int32)
+    _zero_launch_counts()
+    baked = GradCAM(art).explain(eight, cls)
+    torch.cuda.synchronize()
+    baked_launches = _launch_counts()
+    live_cam = GradCAM(live, batch_size=EXPLAIN_BATCH).explain(eight, cls)
+    ips = {}
+    for n in EXPORT_BATCHES:
+        batch = rng.integers(0, 256, (n, 256, 256, 3), np.uint8)
+        turns = [_images_per_s(p, batch) for p in (live, art, art, live)]
+        ips[str(n)] = {"live": (turns[0] + turns[3]) / 2,
+                       "irpx": (turns[1] + turns[2]) / 2,
+                       "turns_live_irpx_irpx_live": turns}
+    # the card's artifact on the CPU: its programs move there and run the
+    # ops' plain versions, as a CPU predictor with K1 'on' does
+    art_cpu = load_predictor(irpx, device="cpu")
+    cpu_on = load_predictor(npz, batch_size=2, device="cpu",
+                            fused_frozen_blocks="on")
+    cpu_equal = all(bool(np.array_equal(a, b)) for a, b in zip(
+        GradCAM(art_cpu).explain(eight[:2]),
+        GradCAM(cpu_on, batch_size=EXPLAIN_BATCH).explain(eight[:2])))
+    checks.update({
+        "export_resolves_auto_to_on": meta["fused_frozen_blocks"] == "on",
+        "irpx_probs_bit_equal_64_256": all(equal.values()),
+        "irpx_forward_k2_once_k1_ten": art_launches == {
+            "eval_preprocess": 1, "identity_bottleneck": 10},
+        "irpx_explain_k2_once_k1_ten": baked_launches == {
+            "eval_preprocess": 1, "identity_bottleneck": 10},
+        "irpx_explain_bit_equal_live": all(
+            bool(np.array_equal(a, b)) for a, b in zip(baked, live_cam)),
+        "irpx_on_cpu_equals_cpu_predictor": cpu_equal})
+    report["export"] = {
+        "seconds": export_s, "load_seconds": load_s, "bytes": members,
+        "fused_frozen_blocks": meta["fused_frozen_blocks"],
+        "bit_equal": equal, "forward_launches": art_launches,
+        "explain_launches": baked_launches, "images_per_s": ips}
+    emit({"phase": "explain", "part": "export", **report["export"]})
+
+    # (c) the daemon with reload, through ServingClient: explains under
+    # /predict traffic, then a reload under the same traffic
+    def loader(path):
+        # serve_cli's loader: an .irpx brings its own ladder
+        return load_predictor(path, batch_size=64, pad_buckets=(
+            None if path.endswith(".irpx") else buckets))
+
+    server = make_server(pred, port=0, window_ms=5.0, loader=loader,
+                         weights_path=npz,
+                         max_concurrent_explains=N_EXPLAIN_CLIENTS)
+    for n in buckets:
+        pred.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    client = ServingClient(url, timeout_s=120)
+    client.wait_until_ready(timeout_s=60)
+    errors, answered, bad_explains = [], [], []
+
+    def explainer(k):
+        c = ServingClient(url, timeout_s=120)
+        for i in range(N_EXPLAINS):
+            path = f"{tmp}/overlay_{k}_{i}.png"
+            try:
+                c.explain(blobs[(k * N_EXPLAINS + i) % 64], overlay_path=path)
+                if not _png_opens(path):
+                    bad_explains.append(f"{k}/{i}: no PNG")
+            except Exception as e:  # noqa: BLE001 — reported below
+                bad_explains.append(f"{k}/{i}: {e!r}")
+
+    def under_traffic(fn):
+        """``fn()`` while N_CLIENTS threads post /predict; all joined."""
+        stop = threading.Event()
+        clients = [_traffic(url, stop, blobs[8:], errors, answered)
+                   for _ in range(N_CLIENTS)]
+        try:
+            return fn()
+        finally:
+            stop.set()
+            for t in clients:
+                t.join(120)
+
+    def explains():
+        threads = [threading.Thread(target=explainer, args=(k,))
+                   for k in range(N_EXPLAIN_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+
+    def reload():
+        t0 = time.perf_counter()
+        result = client.reload(npz1, timeout_s=600)
+        seconds = time.perf_counter() - t0
+        time.sleep(1.0)  # traffic on the new weights
+        return result, seconds
+
+    try:
+        _zero_launch_counts()
+        under_traffic(explains)
+        stats = client.stats()
+        serve_launches = _launch_counts()
+        answered_before = len(answered)
+        reloaded, reload_s = under_traffic(reload)
+        # alone, each check request pads to the 1-image bucket, as the
+        # direct predictor's call does
+        served = _prob_rows([client.predict(b, topk=N_CLASSES)[0]
+                             for b in blobs[:4]])
+        seed1 = loader(npz1)
+        want = np.array([[round(float(v), 6) for v in
+                          seed1.predict_probs(images[i:i + 1])[0]]
+                         for i in range(4)])
+        reload_exact = bool(np.array_equal(served, want))
+        health = client.healthz()
+        # (d) the same daemon, reloaded to the .irpx: /explain through its
+        # baked program, /predict through its b64 program
+        to_irpx = client.reload(irpx, timeout_s=600)
+        _zero_launch_counts()
+        ex = client.explain(blobs[0], overlay_path=f"{tmp}/irpx_overlay.png")
+        [p] = client.predict(blobs[0], topk=N_CLASSES)
+        irpx_launches = _launch_counts()
+        irpx_ok = (to_irpx["generation"] == 2 and server.batcher.predictor
+                   .exported and _png_opens(f"{tmp}/irpx_overlay.png")
+                   and ex["label"] == p["label"])
+    finally:
+        server.stop()
+    n_explains = N_EXPLAIN_CLIENTS * N_EXPLAINS
+    # one forward per /predict dispatch and per /explain (a batch of 8)
+    dispatches = stats["batches"] + stats["explain"]["requests"]
+    checks.update({
+        "explains_all_200_png": not bad_explains,
+        "explain_requests_counted": stats["explain"]["requests"]
+        == n_explains,
+        "daemon_k2_once_k1_ten_per_batch": serve_launches == {
+            "eval_preprocess": dispatches,
+            "identity_bottleneck": 10 * dispatches},
+        "reload_no_failed_predict": not errors
+        and len(answered) > answered_before > 0,
+        "reload_generation_1": reloaded["generation"] == 1
+        and health["generation"] == 1,
+        "reload_probs_equal_seed1_predictor": reload_exact})
+    report["daemon"] = {
+        "explain_requests": n_explains, "predict_answered": answered_before,
+        "predict_answered_during_reload": len(answered) - answered_before,
+        "predict_batches": stats["batches"],
+        "explain_latency_ms": stats["explain"].get("latency_ms"),
+        "predict_latency_ms": stats.get("latency_ms"),
+        "launches": serve_launches, "reload_seconds": reload_s,
+        "failed": (errors + bad_explains)[:5]}
+    emit({"phase": "explain", "part": "daemon", **report["daemon"]})
+
+    checks.update({
+        "irpx_daemon_explain_and_predict": bool(irpx_ok),
+        "irpx_daemon_k2_once_k1_ten_each": irpx_launches == {
+            "eval_preprocess": 2, "identity_bottleneck": 20}})
+    out["launches"]["explain"] = {
+        key: (gc_launches[key] + art_launches[key] + baked_launches[key]
+              + serve_launches[key] + irpx_launches[key])
+        for key in gc_launches}
+    emit({"phase": "explain", "model": "ResNet50/224, 10 classes, hidden 512",
+          "launches": out["launches"]["explain"], "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"explain checks failed: {failed}")
 
 
 def _curation_images(seed: int, n: int, patterns_seed=None):
@@ -2372,6 +2720,8 @@ def main(argv=None) -> int:
         phase_kernels(out, args.seed, parent)
     if "serve" in phases:
         phase_serve(out, args.seed)
+    if "explain" in phases:
+        phase_explain(out, args.seed)
     if "curation" in phases:
         phase_curation(out, args.seed)
     if "bench" in phases:

@@ -5,9 +5,18 @@ over HTTP on the card (irp_tpu_torch/serve.py).
   python -m irp_tpu_torch.cli.serve_cli --weights final_model.npz \\
       --classes classes.json
 
-  # score one JPEG
+  # score one JPEG; explain it (Grad-CAM overlay PNG, base64)
   curl -s -X POST --data-binary @cat.jpg -H 'Content-Type: image/jpeg' \\
       'http://127.0.0.1:8000/predict?topk=3'
+  curl -s -X POST --data-binary @cat.jpg -H 'Content-Type: image/jpeg' \\
+      'http://127.0.0.1:8000/explain'
+
+  # with --allow-reload: swap the served weights with no downtime
+  curl -s -X POST -H 'Content-Type: application/json' \\
+      -d '{"weights": "new_model.npz"}' http://127.0.0.1:8000/reload
+
+--weights also takes an .irpx exported by predict_cli --export: its
+programs fix the batch, the bucket ladder, TTA and the fused mode.
 """
 
 from __future__ import annotations
@@ -17,13 +26,11 @@ import signal
 import sys
 import threading
 
-# flags of the JAX package's serve CLI that this slice does not run
+# flags of the JAX package's serve CLI that this port does not run yet
 _NOT_PORTED = {
-    "data_parallel": "--data-parallel (ROADMAP.md, Queue 1, A14)",
-    "replicas": "--replicas (ROADMAP.md, Queue 1, A11: reload and "
-                "replicas)",
-    "allow_reload": "--allow-reload (ROADMAP.md, Queue 1, A11: reload and "
-                    "replicas)",
+    "data_parallel": "--data-parallel (ROADMAP.md, Queue 1, A14: "
+                     "parallelism)",
+    "replicas": "--replicas (ROADMAP.md, Queue 1, A14: parallelism)",
 }
 
 
@@ -31,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--weights", required=True,
-                   help="final-weights artifact (.npz or torch .pth)")
+                   help="final-weights artifact (.npz or torch .pth), or "
+                        "an .irpx from predict_cli --export")
     p.add_argument("--classes", default=None,
                    help="class names: JSON file or comma-separated list")
     p.add_argument("--host", default="127.0.0.1")
@@ -66,7 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replicas", default=None,
                    help="not in this port yet (an error)")
     p.add_argument("--allow-reload", action="store_true",
-                   help="not in this port yet (an error)")
+                   help="enable POST /reload {\"weights\": path}: swap the "
+                        "served model with no downtime (loaded and warmed "
+                        "before the atomic swap, with this launch's flags); "
+                        "off by default, as it lets HTTP clients make the "
+                        "daemon read files")
     return p
 
 
@@ -84,29 +96,61 @@ def main(argv=None) -> int:
     from irp_tpu_torch.serve import make_server
 
     class_names = load_class_names(args.classes) if args.classes else None
+    is_irpx = args.weights.lower().endswith(".irpx")
+    if is_irpx and args.batch_buckets:
+        print("error: an .irpx serves only the bucket ladder baked at "
+              "export (predict_cli --export --export-batch-buckets ...); a "
+              "bucketed artifact's ladder is used without this flag",
+              file=sys.stderr)
+        return 2
+    device = "cpu" if args.cpu else "cuda"
     pad_buckets = None
+
+    def load(path, names=None):
+        # the launch's flags; an .irpx fixes its own ladder
+        return load_predictor(
+            path, class_names=names, batch_size=args.batch_size,
+            image_size=args.image_size,
+            pad_buckets=(None if path.lower().endswith(".irpx")
+                         else pad_buckets),
+            tta=args.tta, device=device,
+            fused_frozen_blocks=args.fused_frozen_blocks)
+
     try:
         if args.batch_buckets:
             pad_buckets = serving_buckets(args.batch_buckets,
                                           args.batch_size)
-        predictor = load_predictor(
-            args.weights, class_names=class_names,
-            batch_size=args.batch_size, image_size=args.image_size,
-            pad_buckets=pad_buckets, tta=args.tta,
-            device="cpu" if args.cpu else "cuda",
-            fused_frozen_blocks=args.fused_frozen_blocks)
-    except (ValueError, NotImplementedError, RuntimeError) as e:
+        predictor = load(args.weights, class_names)
+    except (ValueError, NotImplementedError, RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if predictor.source_size is not None:  # an .irpx: shapes are baked
+        if predictor.source_size != 256:
+            print(f"error: this artifact accepts only "
+                  f"{predictor.source_size}x{predictor.source_size} "
+                  "sources, but the daemon decodes requests to the 256x256 "
+                  "cache contract; re-export with the default source size",
+                  file=sys.stderr)
+            return 2
+        if args.batch_size != predictor.batch_size:
+            print(f"note: the artifact fixes batch_size="
+                  f"{predictor.batch_size}; --batch-size {args.batch_size} "
+                  "is ignored", file=sys.stderr)
+    # a reloaded artifact gets no launch-time --classes: the daemon keeps
+    # the served names only where they fit, or takes the artifact's own
+    loader = load if args.allow_reload else None
     # bind first (fails fast on a busy port), then warm every served
     # batch size (cuDNN algorithm choice, kernel build) before traffic
     server = make_server(predictor, host=args.host, port=args.port,
                          window_ms=args.window_ms, decoder=args.decoder,
-                         verbose=args.verbose, weights_path=args.weights)
+                         verbose=args.verbose, loader=loader,
+                         weights_path=args.weights)
     cfg = predictor.model.config
     shapes = predictor.pad_buckets or (predictor.batch_size,)
     print(f"warming ResNet{cfg.depth} forward on {predictor.device} "
-          f"(crop {cfg.image_size}, batch sizes {list(shapes)}) ...",
+          f"(crop {cfg.image_size}, batch sizes {list(shapes)}, "
+          f"fused_frozen_blocks {cfg.fused_frozen_blocks}"
+          f"{', exported program' if predictor.exported else ''}) ...",
           flush=True)
     for n in shapes:
         predictor.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
@@ -122,7 +166,8 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _term)
     print(f"serving on http://{args.host}:{server.port}  (POST /predict, "
-          f"GET /healthz, GET /stats, GET /metrics)", flush=True)
+          f"POST /explain{', POST /reload' if loader else ''}, GET /healthz, "
+          f"GET /stats, GET /metrics)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -13,13 +13,17 @@
   compiled shapes, so both packages score the same padded batches.
 - The forward runs on CUDA unless the caller asks for the CPU, under
   ``torch.inference_mode()``.
+- An ``.irpx`` artifact (``export.py``) loads as a Predictor whose forward
+  is the exported program, at the batch and source size it was exported
+  with (``source_size``); its Grad-CAM program, when it has one, serves
+  ``explain.GradCAM``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,7 +34,8 @@ from irp_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 
 _BASIC_DEPTHS = {(2, 2, 2, 2): 18, (3, 4, 6, 3): 34}
 _BOTTLENECK_DEPTHS = {(3, 4, 6, 3): 50, (3, 4, 23, 3): 101, (3, 8, 36, 3): 152}
-_LATER = "is not ported yet (ROADMAP.md, Queue 1, A11: export and replicas)"
+_LATER = ("is not ported yet (ROADMAP.md, Queue 1, A14: replicas and "
+          "data-parallel serving are parallelism)")
 
 
 def softmax_np(logits: np.ndarray) -> np.ndarray:
@@ -38,6 +43,33 @@ def softmax_np(logits: np.ndarray) -> np.ndarray:
     logits = np.asarray(logits, np.float32)
     exps = np.exp(logits - logits.max(axis=-1, keepdims=True))
     return (exps / exps.sum(axis=-1, keepdims=True)).astype(np.float32)
+
+
+def input_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The dtype eval preprocessing hands the model: bf16 for a bf16
+    model, else float32 (as the JAX package's predictor)."""
+    return (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
+def probs_forward(model, images_u8: torch.Tensor,
+                  tta: bool = False) -> torch.Tensor:
+    """The predictor's forward: (B, H, W, 3) uint8 on the model's device
+    -> (B, K) float32 softmax.  Eval preprocess (K2 on the card), the
+    model (K1 in its frozen identity blocks on the card), softmax; with
+    ``tta`` the mean of the identity's and the horizontal flip's."""
+    from irp_tpu_torch.ops.preprocess import eval_preprocess_batch
+
+    cfg = model.config
+    x = eval_preprocess_batch(images_u8, cfg.image_size, input_dtype(cfg),
+                              IMAGENET_MEAN, IMAGENET_STD)
+    x = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
+    p = torch.softmax(model(x).float(), dim=-1)
+    if tta:
+        # flip W; the center crop is symmetric, so this equals flipping
+        # the source
+        p = 0.5 * (p + torch.softmax(model(x.flip(3)).float(), dim=-1))
+    return p
 
 
 def infer_model_config(params: dict, image_size: int = 224,
@@ -119,6 +151,12 @@ class Predictor:
     allowed padded batch sizes (ascending, last == batch_size); a chunk
     of n images pads to the smallest bucket >= n.  ``tta`` averages the
     softmax over the identity and the horizontal flip.
+
+    A predictor from an ``.irpx`` (``export.load_exported_predictor``) has
+    ``_program`` set, the exported forward ((B, S, S, 3) uint8 on the
+    device -> probabilities), and ``source_size`` S: its shapes are fixed
+    and its ``model`` carries only the ``config``; ``_cam_call`` is its
+    baked Grad-CAM program, if any, at ``_cam_batch_size``.
     """
 
     model: torch.nn.Module
@@ -127,6 +165,10 @@ class Predictor:
     pad_buckets: Optional[Tuple[int, ...]] = None
     tta: bool = False
     device: Optional[object] = None
+    source_size: Optional[int] = None
+    _program: object = field(default=None, repr=False)
+    _cam_call: object = field(default=None, repr=False)
+    _cam_batch_size: Optional[int] = field(default=None, repr=False)
 
     def __post_init__(self):
         if self.class_names is not None:
@@ -148,32 +190,30 @@ class Predictor:
                     f"got {self.pad_buckets}")
             self.pad_buckets = buckets
         self.device = resolve_device(self.device)
+        if self.exported:
+            # the program fixes its shapes and its preprocessing; ``tta``
+            # only records whether it flip-averages
+            return
         self.model = self.model.to(device=self.device,
                                    memory_format=torch.channels_last).eval()
         self.model.backbone.cache_folded_weights()
-        cfg = self.model.config
-        self._dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-                       else torch.float32)
 
     @property
     def num_classes(self) -> int:
         return self.model.config.num_classes
 
-    def _forward(self, chunk: np.ndarray) -> np.ndarray:
-        from irp_tpu_torch.ops.preprocess import eval_preprocess_batch
+    @property
+    def exported(self) -> bool:
+        """Whether the forward is an exported program (an ``.irpx``)."""
+        return self._program is not None
 
+    def _forward(self, chunk: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             images = torch.from_numpy(chunk).to(self.device)
-            x = eval_preprocess_batch(images, self.model.config.image_size,
-                                      self._dtype, IMAGENET_MEAN,
-                                      IMAGENET_STD)
-            x = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
-            p = torch.softmax(self.model(x).float(), dim=-1)
-            if self.tta:
-                # flip W; the center crop is symmetric, so this equals
-                # flipping the source
-                p = 0.5 * (p + torch.softmax(self.model(x.flip(3)).float(),
-                                             dim=-1))
+            if self.exported:
+                p = self._program(images)
+            else:
+                p = probs_forward(self.model, images, self.tta)
             return p.cpu().numpy()
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
@@ -193,6 +233,13 @@ class Predictor:
                 f"{out_size}x{out_size}; supply sources at least that "
                 "large (the cache contract decodes to 256x256, "
                 "data/pipeline.py::decode_to_rgb256)")
+        if (self.source_size is not None
+                and (h, w) != (self.source_size, self.source_size)):
+            raise ValueError(
+                f"this exported program requires sources of exactly "
+                f"{self.source_size}x{self.source_size}, got {h}x{w} "
+                "(re-export with a different source_size, or decode to "
+                "the cache geometry first)")
         n = images_u8.shape[0]
         if n == 0:
             return np.zeros((0, self.num_classes), np.float32)
@@ -416,11 +463,35 @@ def load_predictor(weights_path: str,
     backbone-only checkpoint is rejected: a random head must never serve.
     The eval crop comes from (highest wins) ``cfg``, ``image_size``, the
     npz's ``image_size`` metadata, then 224.
+
+    ``.irpx`` = an artifact of this package's ``export.py``: its programs
+    fix the batch, the source size, the crop, TTA and the resolved
+    ``fused_frozen_blocks``, so ``cfg``, ``image_size``, ``batch_size``
+    and ``fused_frozen_blocks`` are not read; ``pad_buckets`` is refused
+    (the artifact serves its own ladder) and ``tta`` is refused unless
+    the artifact bakes it.
     """
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= (data-parallel serving) {_LATER}")
     dev = resolve_device(device)
     ext = os.path.splitext(weights_path)[1].lower()
     if ext == ".irpx":
-        raise NotImplementedError(f".irpx artifacts: export {_LATER}")
+        from irp_tpu_torch.export import (load_exported_predictor,
+                                          tta_preflight_error)
+
+        if pad_buckets is not None:
+            raise ValueError(
+                "an .irpx serves only the pad_buckets ladder baked at "
+                "export time (export a predictor built with "
+                "pad_buckets=...); load-time buckets need the live weights "
+                "(.npz/.pth)")
+        if tta:
+            err = tta_preflight_error(weights_path,
+                                      "a predictor built with tta=True")
+            if err:
+                raise ValueError(err)
+        return load_exported_predictor(weights_path, class_names=class_names,
+                                       device=dev)
     if ext == ".npz":
         from irp_tpu_torch.train.checkpoint import load_weights_npz
 
@@ -437,7 +508,7 @@ def load_predictor(weights_path: str,
         variables = state_dict_to_jax_variables(state)
     else:
         raise ValueError(f"unsupported weights format: {weights_path} "
-                         "(expected .npz or .pth)")
+                         "(expected .npz, .pth or .irpx)")
     if "head_dense2" not in variables["params"]:
         raise ValueError(
             f"{weights_path} has no classifier head — it is a backbone-only "

@@ -210,6 +210,28 @@ class Classifier(nn.Module):
             if training:
                 self.train()
 
+    def spatial_features(self, x):
+        """The pre-pool map of the last stage (B, C, h, w), in eval form
+        (inference BN): the Grad-CAM surface (``explain.py``)."""
+        training = self.training
+        if training:
+            self.eval()
+        try:
+            with self.precision_scope(x):
+                return self.backbone.forward_spatial(x)
+        finally:
+            if training:
+                self.train()
+
+    def head_from_spatial(self, spatial):
+        """A pre-pool map (B, C, h, w) -> eval-form f32 logits: the pool
+        and the head without dropout, so that
+        ``head_from_spatial(spatial_features(x))`` equals ``forward(x)``
+        in eval mode, bit for bit."""
+        dense1, relu, dense2 = (self.classifier[1], self.classifier[2],
+                                self.classifier[4])
+        return at_least_f32(dense2(relu(dense1(self.backbone.pool(spatial)))))
+
     def init_weights(self, generator: torch.Generator | None = None) -> None:
         """flax's initializers: lecun_normal kernels, zero Dense biases."""
         self.backbone.init_weights(generator)

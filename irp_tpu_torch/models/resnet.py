@@ -360,6 +360,10 @@ class ResNet(nn.Module):
         ``forward(x) == forward_trainable(forward_frozen(x))``.  With
         ``remat_blocks``, each block's activations are recomputed in the
         backward instead of stored."""
+        return self.pool(self.trainable_stages(x))
+
+    def trainable_stages(self, x):
+        """The stages after the frozen prefix, without the pool."""
         remat = self.remat_blocks and torch.is_grad_enabled()
         for name in STAGE_NAMES[self.frozen_prefix:]:
             for block in getattr(self, name):
@@ -370,4 +374,14 @@ class ResNet(nn.Module):
                                                      block))
                 else:
                     x = block(x)
+        return x
+
+    def forward_spatial(self, x):
+        """The last stage's map (B, C, h, w) before the global pool:
+        ``forward(x) == pool(forward_spatial(x))``."""
+        return self.trainable_stages(self.forward_frozen(x))
+
+    def pool(self, x):
+        """Global average pool in f32 (f64 stays), cast to the compute
+        dtype: (B, C, h, w) -> (B, C)."""
         return at_least_f32(x).mean(dim=(2, 3)).to(self.compute_dtype)

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``ops/pallas_image.py``:
 
 - :func:`eval_preprocess` (``pallas_eval_preprocess``): eval crop +
-  normalize, kernel ``csrc/eval_preprocess.cu``.  The output is NHWC,
+  normalize, kernel ``csrc/eval_preprocess.cu``, behind the custom op
+  ``irp_tpu_torch::eval_preprocess`` (``torch.library``; CPU kernel the
+  plain version, fake kernel the output's shape for ``torch.export``).  The output is NHWC,
   which is the model's NCHW input in ``channels_last`` memory:
   ``out.permute(0, 3, 1, 2)`` is that input, with no copy.
 - :func:`pairwise_topk` (``pallas_pairwise_dist`` and the top-k that the
@@ -75,15 +77,38 @@ def eval_preprocess(images_u8: torch.Tensor, out_size: int = 224,
     """(B, H, W, 3) uint8 -> (B, out, out, 3) ``dtype``: center crop at
     ((H-out)//2, (W-out)//2), then ``x/255`` normalized by mean/std.
 
-    A CPU tensor goes through :func:`eval_preprocess_plain`; a CUDA tensor
-    launches the kernel on the current stream (bf16 or f32 output) or
-    raises.
+    Goes through the custom op ``irp_tpu_torch::eval_preprocess``, which
+    ``torch.export`` keeps as one node: a CPU tensor runs
+    :func:`eval_preprocess_plain`; a CUDA tensor launches the kernel on the
+    current stream (bf16 or f32 output) or raises.
     """
-    if images_u8.device.type == "cpu":
-        return eval_preprocess_plain(images_u8, out_size, mean, std, dtype)
     _check_images(images_u8, out_size)
-    if images_u8.device.type != "cuda":
+    if images_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {images_u8.device}")
+    return torch.ops.irp_tpu_torch.eval_preprocess(
+        images_u8, int(out_size), [float(v) for v in mean],
+        [float(v) for v in std], dtype)
+
+
+eval_preprocess.launches = 0
+
+
+@torch.library.custom_op("irp_tpu_torch::eval_preprocess", mutates_args=(),
+                         device_types="cpu")
+def _eval_preprocess_op(images_u8: torch.Tensor, out_size: int,
+                        mean: Sequence[float], std: Sequence[float],
+                        dtype: torch.dtype) -> torch.Tensor:
+    return eval_preprocess_plain(images_u8, out_size, mean, std, dtype)
+
+
+@_eval_preprocess_op.register_fake
+def _(images_u8, out_size, mean, std, dtype):
+    return images_u8.new_empty((images_u8.shape[0], out_size, out_size, 3),
+                               dtype=dtype)
+
+
+@_eval_preprocess_op.register_kernel("cuda")
+def _(images_u8, out_size, mean, std, dtype):
     if dtype not in _OUT_DTYPES:
         raise ValueError(f"kernel output dtype must be bfloat16 or float32, "
                          f"got {dtype}")
@@ -105,9 +130,6 @@ def eval_preprocess(images_u8: torch.Tensor, out_size: int = 224,
     _kernels.check(lib, code, "eval_preprocess")
     eval_preprocess.launches += 1
     return out
-
-
-eval_preprocess.launches = 0
 
 
 def _pairwise_args(a, b, a_sq, b_sq):

@@ -1,6 +1,10 @@
 """Fused frozen identity bottleneck: the CUDA kernel's wrapper, its plain
 version and the BatchNorm folding it needs; and the relu copy that is its
-bandwidth floor.
+bandwidth floor.  The bottleneck is the custom op
+``irp_tpu_torch::identity_bottleneck`` (``torch.library``): its CPU kernel
+is the plain version, its CUDA kernel the launch, and its fake kernel
+gives ``torch.export`` the output's shape, so an exported program holds
+the op itself.
 
 Counterpart of the JAX package's ``ops/pallas_resnet.py`` and of
 ``tools/bench_fused_block.py::copy_floor``.  The kernels are
@@ -93,17 +97,41 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
     1x1 conv (w3, b3), every BN pre-folded (:func:`fold_bn_into_conv`).
 
     x: (B, H, W, C); w1: (C, M), w2: (3, 3, M, M), w3: (M, C) in x.dtype;
-    b1/b2: (M,), b3: (C,) float32.  A CPU tensor runs
-    :func:`reference_identity_bottleneck`; a CUDA tensor launches the
-    kernel on the current stream (bf16 x and weights, C a multiple of 64,
-    M in :data:`K1_WIDTHS`, contiguous, a row that fits the kernel's
-    shared memory; :func:`bottleneck_plan` picks its band) or raises.
+    b1/b2: (M,), b3: (C,) float32.  Goes through the custom op
+    ``irp_tpu_torch::identity_bottleneck``, which ``torch.export`` keeps as
+    one node: a CPU tensor runs :func:`reference_identity_bottleneck`; a
+    CUDA tensor launches the kernel on the current stream (bf16 x and
+    weights, C a multiple of 64, M in :data:`K1_WIDTHS`, contiguous, a row
+    that fits the kernel's shared memory; :func:`bottleneck_plan` picks
+    its band) or raises.
     """
     _check_shapes(x, w1, b1, w2, b2, w3, b3)
-    if x.device.type == "cpu":
-        return reference_identity_bottleneck(x, w1, b1, w2, b2, w3, b3)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    return torch.ops.irp_tpu_torch.identity_bottleneck(x, w1, b1, w2, b2,
+                                                       w3, b3)
+
+
+fused_identity_bottleneck.launches = 0
+
+
+@torch.library.custom_op("irp_tpu_torch::identity_bottleneck",
+                         mutates_args=(), device_types="cpu")
+def _identity_bottleneck_op(x: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor, w3: torch.Tensor,
+                            b3: torch.Tensor) -> torch.Tensor:
+    return reference_identity_bottleneck(x, w1, b1, w2, b2, w3,
+                                         b3).contiguous()
+
+
+@_identity_bottleneck_op.register_fake
+def _(x, w1, b1, w2, b2, w3, b3):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@_identity_bottleneck_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2, w3, b3):
     b, h, w, c = x.shape
     m = w1.shape[1]
     args = (x, w1, b1, w2, b2, w3, b3)
@@ -130,9 +158,6 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
     _kernels.check(lib, code, "identity_bottleneck")
     fused_identity_bottleneck.launches += 1
     return out
-
-
-fused_identity_bottleneck.launches = 0
 
 
 def relu_copy_plain(x: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,15 @@ Endpoints
 - ``POST /predict`` — a raw image body, or JSON ``{"instances":
   ["<base64 image>", ...]}``; ``?topk=k`` sets how many (name, prob)
   pairs each prediction carries.
-- ``POST /explain`` and ``POST /reload`` answer 501: Grad-CAM and hot
-  reload come with a later slice.
+- ``POST /explain`` — the same bodies; each image's prediction and a
+  Grad-CAM overlay PNG (base64) of the regions that drove it
+  (``explain.py``); ``?class=i`` explains class i instead of the
+  predicted one.  It runs in the handler thread, outside the batcher, at
+  most ``max_concurrent_explains`` at a time (503 beyond).
+- ``POST /reload`` — ``{"weights": "<path>"}``: swap the served model with
+  no downtime (the new one is loaded and every served batch size warmed
+  before one atomic swap; on failure 400 and the old model serves on).
+  Only with a loader (``serve_cli --allow-reload``); 403 otherwise.
 """
 
 from __future__ import annotations
@@ -40,12 +47,6 @@ import numpy as np
 from irp_tpu_torch.infer import Predictor
 
 _STOP = object()
-_NOT_PORTED = {
-    "/explain": "Grad-CAM explanations are not ported yet (ROADMAP.md, "
-                "Queue 1, A11: explain)",
-    "/reload": "hot weight reload is not ported yet (ROADMAP.md, Queue 1, "
-               "A11: reload and replicas)",
-}
 
 
 def latency_percentiles(latencies_ms, qs=(0.50, 0.90, 0.99),
@@ -65,6 +66,11 @@ class ServerOverloadedError(RuntimeError):
     """The request queue is full — shed load instead of growing it."""
 
 
+class ReloadDisabledError(RuntimeError):
+    """POST /reload on a daemon launched without a loader (HTTP 403); its
+    own type, so that the 403 never swallows a failed load."""
+
+
 @dataclass
 class _Pending:
     """One enqueued request: n images awaiting a shared dispatch."""
@@ -75,6 +81,9 @@ class _Pending:
     error: Optional[BaseException] = None
     t_enqueue: float = field(default_factory=time.monotonic)
     cancelled: bool = False             # waiter gave up; skip the forward
+    # the predictor that served this request, set at dispatch: a hot
+    # reload can never pair one model's probabilities with another's names
+    predictor: Optional[Predictor] = None
 
     def wait(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self.event.wait(timeout):
@@ -100,7 +109,7 @@ class MicroBatcher:
         if isinstance(predictor, (list, tuple)):
             raise NotImplementedError(
                 "serving replicas is not ported yet (ROADMAP.md, Queue 1, "
-                "A11: reload and replicas)")
+                "A14: replicas are parallelism)")
         self.predictor = predictor
         self.max_batch = (predictor.batch_size if max_batch is None
                           else int(max_batch))
@@ -247,10 +256,14 @@ class MicroBatcher:
             self._dispatch_same_shape(bucket)
 
     def _dispatch_same_shape(self, group: List[_Pending]) -> None:
+        # one read: a hot reload swaps .predictor between dispatches
+        predictor = self.predictor
+        for p in group:
+            p.predictor = predictor
         try:
             images = (group[0].images if len(group) == 1 else
                       np.concatenate([p.images for p in group], axis=0))
-            probs = self.predictor.predict_probs(images)
+            probs = predictor.predict_probs(images)
         except Exception as e:  # noqa: BLE001 — delivered to the waiters
             with self._lock:
                 self._stats["errors"] += len(group)
@@ -330,6 +343,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, {
                 "status": "ok",
                 "uptime_s": round(time.monotonic() - self.server.t_start, 1),
+                "generation": self.server.generation,
                 "weights": self.server.weights_path,
                 "device": str(self.server.batcher.predictor.device),
                 "model": {"family": cfg.family, "depth": cfg.depth,
@@ -338,7 +352,9 @@ class _Handler(BaseHTTPRequestHandler):
                           "class_names": list(self.server.class_names or [])
                           or None}})
         elif path == "/stats":
-            self._send_json(200, self.server.batcher.stats())
+            stats = self.server.batcher.stats()
+            stats["explain"] = self.server.explain_stats()
+            self._send_json(200, stats)
         elif path == "/metrics":
             body = self.server.metrics_text().encode()
             self.send_response(200)
@@ -350,24 +366,49 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._send_json(404, {"error": f"unknown path {path}"})
 
+    def _do_reload(self, body: bytes) -> None:
+        try:
+            payload = json.loads(body)
+            weights = (payload.get("weights") if isinstance(payload, dict)
+                       else None)
+            if not isinstance(weights, str) or not weights:
+                raise ValueError('body must be {"weights": "<path>"}')
+        except ValueError as e:
+            self._send_json(400, {"error": f"bad request: {e}"})
+            return
+        try:
+            result = self.server.reload_weights(weights)
+        except ReloadDisabledError as e:
+            self._send_json(403, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — a bad artifact, a failed
+            # load or warm-up: the old model serves on, and the client
+            # gets an answer
+            self._send_json(400, {"error": f"reload failed: {e}",
+                                  "generation": self.server.generation})
+            return
+        self._send_json(200, result)
+
     def do_POST(self):  # noqa: N802
         parsed = urlparse(self.path)
-        if parsed.path in _NOT_PORTED:
+        if parsed.path not in ("/predict", "/explain", "/reload"):
             # body unread: keep-alive would misparse it as the next request
-            self.close_connection = True
-            self._send_json(501, {"error": _NOT_PORTED[parsed.path]})
-            return
-        if parsed.path != "/predict":
             self.close_connection = True
             self._send_json(404, {"error": f"unknown path {parsed.path}"})
             return
         try:
-            topk = int(parse_qs(parsed.query).get("topk", ["1"])[0])
+            query = parse_qs(parsed.query)
+            topk = int(query.get("topk", ["1"])[0])
+            explain_cls = None
+            if parsed.path == "/explain":
+                # /predict does not read 'class', so it never 400s on it
+                cls_q = query.get("class", [None])[0]
+                explain_cls = None if cls_q is None else int(cls_q)
             length = int(self.headers.get("Content-Length") or 0)
         except ValueError:
             self.close_connection = True
-            self._send_json(400, {"error": "topk and Content-Length must be "
-                                           "integers"})
+            self._send_json(400, {"error": "topk, class and Content-Length "
+                                           "must be integers"})
             return
         if length <= 0:
             self._send_json(400, {"error": "empty request body"})
@@ -377,6 +418,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(413, {"error": "request body too large"})
             return
         body = self.rfile.read(length)
+        if parsed.path == "/reload":
+            self._do_reload(body)
+            return
         ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
         try:
             if ctype == "application/json":
@@ -398,6 +442,9 @@ class _Handler(BaseHTTPRequestHandler):
             # the client's fault and gets an answer, not a dropped socket
             self._send_json(400, {"error": f"bad request: {e}"})
             return
+        if parsed.path == "/explain":
+            self._do_explain(images, topk, explain_cls)
+            return
         t0 = time.monotonic()
         try:
             pending = self.server.batcher.submit_async(images)
@@ -408,9 +455,71 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — surfaced to the client
             self._send_json(500, {"error": f"inference failed: {e}"})
             return
-        preds = _topk_rows(probs, self.server.class_names, topk)
+        # the names of the predictor that served this dispatch
+        preds = _topk_rows(probs, pending.predictor.class_names, topk)
         self._send_json(200, {
             "predictions": preds, "n": len(preds),
+            "latency_ms": round((time.monotonic() - t0) * 1e3, 3)})
+
+    def _do_explain(self, images: np.ndarray, topk: int,
+                    explain_cls: Optional[int]) -> None:
+        """Grad-CAM of each image: its prediction and an overlay PNG
+        (base64).  Runs in this handler thread, not through the batcher;
+        throughput belongs to /predict."""
+        import io
+
+        from PIL import Image
+
+        from irp_tpu_torch.explain import center_crop_u8, overlay_cam
+        from irp_tpu_torch.infer import softmax_np
+
+        if not self.server._explain_slots.acquire(blocking=False):
+            self._send_json(503, {"error": "explain capacity saturated; "
+                                           "retry shortly"})
+            return
+        t0 = time.monotonic()
+        try:
+            # ONE snapshot: validation, maps and names all come from this
+            # GradCAM's predictor, whatever a concurrent reload does
+            gc = self.server.gradcam()
+            predictor = gc.predictor
+            num_classes = predictor.num_classes
+            if explain_cls is not None and not 0 <= explain_cls < num_classes:
+                self._send_json(400, {"error": f"class must be in "
+                                               f"[0, {num_classes})"})
+                return
+            n = images.shape[0]
+            if predictor.tta:
+                # the explain program is single-view: report the
+                # flip-averaged scores /predict serves, and explain the
+                # class they pick
+                probs = gc.tta_scorer.predict_probs(images)
+                cls = (np.argmax(probs, axis=1).astype(np.int32)
+                       if explain_cls is None
+                       else np.full((n,), explain_cls, np.int32))
+                cams, _ = gc.explain(images, class_idx=cls)
+            else:
+                cams, logits = gc.explain(
+                    images, class_idx=(None if explain_cls is None else
+                                       np.full((n,), explain_cls, np.int32)))
+                probs = softmax_np(logits)
+        except Exception as e:  # noqa: BLE001 — surfaced to the client
+            self._send_json(500, {"error": f"explain failed: {e}"})
+            return
+        finally:
+            self.server._explain_slots.release()
+        self.server.record_explain(int(images.shape[0]),
+                                   (time.monotonic() - t0) * 1e3)
+        cropped = center_crop_u8(images, predictor.model.config.image_size)
+        rows = _topk_rows(probs, predictor.class_names, topk)
+        for i, row in enumerate(rows):
+            buf = io.BytesIO()
+            Image.fromarray(overlay_cam(cropped[i], cams[i])).save(buf, "PNG")
+            row["explained_class"] = (explain_cls if explain_cls is not None
+                                      else row["label"])
+            row["cam_png_b64"] = base64.b64encode(buf.getvalue()).decode()
+        self._send_json(200, {
+            "explanations": rows, "n": len(rows),
             "latency_ms": round((time.monotonic() - t0) * 1e3, 3)})
 
 
@@ -418,7 +527,8 @@ class InferenceServer(ThreadingHTTPServer):
     """HTTP front end over a :class:`MicroBatcher`.
 
     Build via :func:`make_server`; ``.start()`` serves on a daemon thread
-    (tests, embedding), ``.serve_forever()`` blocks (CLI).
+    (tests, embedding), ``.serve_forever()`` blocks (CLI).  ``loader`` (a
+    ``path -> Predictor`` callable) enables ``POST /reload``.
     """
 
     daemon_threads = True
@@ -427,13 +537,17 @@ class InferenceServer(ThreadingHTTPServer):
     def __init__(self, address, batcher: MicroBatcher, class_names=None,
                  decoder: str = "auto", request_timeout_s: float = 60.0,
                  max_request_bytes: int = 64 * 1024 * 1024,
-                 verbose: bool = False, weights_path: Optional[str] = None):
+                 max_concurrent_explains: int = 2, verbose: bool = False,
+                 loader=None, weights_path: Optional[str] = None):
         self.batcher = batcher
         self.class_names = list(class_names) if class_names else None
         n = batcher.predictor.num_classes
         if self.class_names is not None and len(self.class_names) != n:
             raise ValueError(f"{len(self.class_names)} class names for a "
                              f"{n}-class model")
+        if self.class_names is not None:
+            # the predictor names each dispatch's answers (_Pending)
+            batcher.predictor.class_names = self.class_names
         self.decoder = decoder
         self.request_timeout_s = request_timeout_s
         self.max_request_bytes = max_request_bytes
@@ -441,11 +555,115 @@ class InferenceServer(ThreadingHTTPServer):
         self.weights_path = weights_path
         self.t_start = time.monotonic()
         self._thread: Optional[threading.Thread] = None
+        self._gradcam = None
+        self._gradcam_lock = threading.Lock()
+        self._explain_stats = {"requests": 0, "images": 0}
+        self._explain_latencies_ms: deque = deque(maxlen=1024)
+        # /explain bypasses the batcher's queue bound, so it has its own
+        self._explain_slots = threading.BoundedSemaphore(
+            max(1, int(max_concurrent_explains)))
+        self._loader = loader
+        self._reload_lock = threading.Lock()
+        self.generation = 0
         super().__init__(address, _Handler)
+
+    def gradcam(self):
+        """The shared :class:`~irp_tpu_torch.explain.GradCAM`, built at the
+        first /explain at batch ``min(8, batch_size)`` (an ``.irpx``: its
+        baked batch), with ``tta_scorer``: the predictor that scores a TTA
+        model's explanations (for live weights a clone at the same small
+        batch that shares the served model)."""
+        with self._gradcam_lock:
+            if self._gradcam is None:
+                from irp_tpu_torch.explain import GradCAM
+
+                p = self.batcher.predictor
+                gc = (GradCAM(p) if p.exported
+                      else GradCAM(p, batch_size=min(8, p.batch_size)))
+                gc.tta_scorer = p
+                if p.tta and not p.exported:
+                    gc.tta_scorer = Predictor(
+                        model=p.model, class_names=p.class_names,
+                        batch_size=min(8, p.batch_size), tta=True,
+                        device=p.device)
+                self._gradcam = gc
+            return self._gradcam
+
+    def reload_weights(self, weights_path: str) -> dict:
+        """Serve ``weights_path`` instead, with no downtime: the new
+        predictor is loaded and every served batch size run once BEFORE
+        the swap, which is one attribute write (a dispatch in flight ends
+        on the old weights, the next reads the new).  The shared Grad-CAM
+        is dropped and rebuilt over the new weights.
+
+        Raises :class:`ReloadDisabledError` without a loader and
+        ``ValueError`` for an artifact the daemon cannot serve; any error
+        leaves the old model serving."""
+        if self._loader is None:
+            raise ReloadDisabledError(
+                "hot reload is disabled; launch serve_cli with "
+                "--allow-reload (or pass make_server(loader=...))")
+        with self._reload_lock:  # one reload at a time
+            new = self._loader(weights_path)
+            if new.source_size not in (None, 256):
+                raise ValueError(
+                    f"this artifact accepts only {new.source_size}x"
+                    f"{new.source_size} sources, but the daemon decodes "
+                    "requests to the 256x256 cache contract")
+            if new.class_names is not None:
+                names = list(new.class_names)
+            elif (self.class_names is not None
+                    and len(self.class_names) == new.num_classes):
+                names = self.class_names  # still valid, kept
+            elif self.class_names is not None:
+                raise ValueError(
+                    f"served class names ({len(self.class_names)}) do not "
+                    f"fit the new {new.num_classes}-class model, and the "
+                    "artifact carries none; reload with an artifact that "
+                    "embeds class names")
+            else:
+                names = None
+            # every served shape runs before the swap (the first run of a
+            # shape picks cuDNN's algorithms and builds the kernels)
+            for n in (new.pad_buckets or (1,)):
+                new.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+            new.class_names = names
+            old = self.batcher.predictor
+            self.batcher.predictor = new  # atomic: dispatches read it once
+            if self.batcher.max_batch == old.batch_size:
+                # the cap came from the old batch; track the new one
+                self.batcher.max_batch = new.batch_size
+            self.class_names = names
+            with self._gradcam_lock:
+                self._gradcam = None
+            self.generation += 1
+            self.weights_path = weights_path
+            return {"reloaded": weights_path, "generation": self.generation,
+                    "num_classes": int(new.num_classes),
+                    "previous_num_classes": int(old.num_classes),
+                    "class_names": names}
+
+    def record_explain(self, n_images: int, latency_ms: float) -> None:
+        with self._gradcam_lock:
+            self._explain_stats["requests"] += 1
+            self._explain_stats["images"] += n_images
+            self._explain_latencies_ms.append(latency_ms)
+
+    def explain_stats(self) -> dict:
+        """/explain's counters and latency percentiles (p50/p90/p99 over
+        its last 1024 requests)."""
+        with self._gradcam_lock:
+            s = dict(self._explain_stats)
+            lat = list(self._explain_latencies_ms)
+        pcts = latency_percentiles(lat)
+        if pcts is not None:
+            s["latency_ms"] = pcts
+        return s
 
     def metrics_text(self) -> str:
         """Prometheus text exposition (0.0.4) of the daemon's counters."""
         stats = self.batcher.stats()
+        explain = self.explain_stats()
         cfg = self.batcher.predictor.model.config
         lines = []
 
@@ -463,15 +681,24 @@ class InferenceServer(ThreadingHTTPServer):
                 ("cancelled", "requests abandoned before dispatch"),
                 ("errors", "requests failed inside dispatch")):
             metric(f"irp_{key}_total", "counter", int(stats[key]), help_text)
+        for key, help_text in (("requests", "explain requests served"),
+                               ("images", "images explained")):
+            metric(f"irp_explain_{key}_total", "counter", int(explain[key]),
+                   help_text)
         metric("irp_batch_fill_mean", "gauge",
                round(float(stats["mean_batch_fill"]), 4),
                "mean images per device dispatch")
-        for pct, value in (stats.get("latency_ms") or {}).items():
-            metric(f"irp_latency_ms_{pct}", "gauge", round(float(value), 3),
-                   f"{pct} request latency over the last 1024 requests (ms)")
+        for scope, payload in (("", stats), ("explain_", explain)):
+            for pct, value in (payload.get("latency_ms") or {}).items():
+                metric(f"irp_{scope}latency_ms_{pct}", "gauge",
+                       round(float(value), 3),
+                       f"{pct} request latency over the last 1024 requests "
+                       "(ms)")
         metric("irp_uptime_seconds", "gauge",
                round(time.monotonic() - self.t_start, 1),
                "seconds since daemon start")
+        metric("irp_reloads_total", "counter", self.generation,
+               "successful hot weight reloads")
         metric("irp_model_info", "gauge", 1,
                "model identity (labels carry the values)",
                labels=(f'{{family="{cfg.family}",depth="{cfg.depth}",'
@@ -502,12 +729,16 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
                 port: int = 0, class_names=None,
                 max_batch: Optional[int] = None, window_ms: float = 5.0,
                 decoder: str = "auto", verbose: bool = False,
-                request_timeout_s: float = 60.0,
-                weights_path: Optional[str] = None) -> InferenceServer:
+                request_timeout_s: float = 60.0, loader=None,
+                weights_path: Optional[str] = None,
+                max_concurrent_explains: int = 2) -> InferenceServer:
     """An :class:`InferenceServer` (not yet serving) for ``predictor``.
 
     ``port=0`` binds an ephemeral port (read ``server.port`` after).
-    ``class_names`` defaults to the predictor's own.
+    ``class_names`` defaults to the predictor's own.  ``loader`` (a ``path
+    -> Predictor`` callable) enables ``POST /reload``; without it the
+    served weights cannot change.  Beyond ``max_concurrent_explains``
+    explains at once, /explain answers 503.
     """
     batcher = MicroBatcher(predictor, max_batch=max_batch,
                            window_ms=window_ms)
@@ -517,7 +748,8 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
         return InferenceServer((host, port), batcher, class_names=names,
                                decoder=decoder, verbose=verbose,
                                request_timeout_s=request_timeout_s,
-                               weights_path=weights_path)
+                               max_concurrent_explains=max_concurrent_explains,
+                               loader=loader, weights_path=weights_path)
     except BaseException:
         batcher.stop()
         raise

@@ -132,12 +132,17 @@ def test_no_card_means_no_silent_cpu(artifacts):
 
 
 def test_later_slice_features_raise(artifacts, tmp_path):
+    """Replicas and mesh= wait for the parallelism item (A14); an .irpx
+    loads (tests/test_torch_export.py), and a file that is not one is
+    refused by name."""
     _, npz, _ = artifacts
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer.load_predictor(str(tmp_path / "m.irpx"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    bad = tmp_path / "m.irpx"
+    bad.write_bytes(b"not a zip")
+    with pytest.raises(ValueError, match="not a readable irpx"):
+        infer.load_predictor(str(bad), device="cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
         infer.load_predictor(npz, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="A14"):
         infer.replicate_predictor(infer.load_predictor(npz, device="cpu"))
 
 

@@ -127,8 +127,15 @@ def test_healthz_stats_metrics(server):
 
 @pytest.mark.parametrize("path", ["/explain", "/reload"])
 def test_later_slice_routes_answer_501(server, path):
-    code, body = _post(server, path, _jpeg(3), "image/jpeg")
-    assert code == 501 and "ROADMAP" in body["error"]
+    """The routes that answered 501 before Grad-CAM and reload were
+    ported: /explain now explains, and /reload without a loader is 403."""
+    if path == "/explain":
+        code, body = _post(server, path, _jpeg(3), "image/jpeg")
+        assert code == 200 and body["explanations"][0]["label_name"] in NAMES
+    else:
+        code, body = _post(server, path, b'{"weights": "w.npz"}',
+                           "application/json")
+        assert code == 403 and "--allow-reload" in body["error"]
 
 
 def test_bad_requests(server):
@@ -190,9 +197,10 @@ def test_cli_rejects_unported_flags_and_missing_card(tmp_path):
     from irp_tpu_torch.cli.serve_cli import main
 
     weights = str(tmp_path / "missing.npz")
-    for flag in (["--replicas", "2"], ["--data-parallel"],
-                 ["--allow-reload"]):
+    for flag in (["--replicas", "2"], ["--data-parallel"]):
         assert main(["--weights", weights, "--cpu", *flag]) == 2
+    # --allow-reload is ported: the missing file is what refuses it
+    assert main(["--weights", weights, "--cpu", "--allow-reload"]) == 2
     assert main(["--weights", str(tmp_path / "w.bin"), "--cpu"]) == 2
     if not torch.cuda.is_available():
         assert main(["--weights", weights]) == 2
