@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (with Grad-CAM, hot reload and the
-exported artifact), curation, benchmark, training, sweep, final-training
-and batch-prediction paths once on one NVIDIA GPU.
+exported artifact, for all four model families), curation, benchmark,
+training, sweep, final-training and batch-prediction paths once on one
+NVIDIA GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
   python3 chip_smoke.py --phases device,build,explain
+  python3 chip_smoke.py --phases device,build,families
   python3 chip_smoke.py --phases device,build,train
   python3 chip_smoke.py --phases device,build,hyperopt
   python3 chip_smoke.py --phases device,build,final
@@ -78,7 +80,28 @@ Phases, each printing one JSON line:
               /explain and /predict, K2 once and K1 10 times each.
               Prints Grad-CAM ms per batch, /explain p50/p99, export and
               reload seconds.
-6. curation — embedding outlier detection at the Animals-10 scale:
+6. families — the other model families served at full width (224 crop
+              from 256x256, 10 classes, MLP head 512, bf16, random weights
+              from the seed): ViT-B/16, ConvNeXt-Tiny and EfficientNet-B0,
+              each (a) saved as a flax-layout .npz and loaded by
+              load_predictor, whose inferred config must give the family
+              and variant, and as a torchvision-layout .pth, whose
+              probabilities must equal the .npz's; (b) predict_probs at
+              batch 64 and 256 (K2 once a batch, K1 never by the
+              counters); (c) its bf16 probabilities against the card's f32
+              forward (FAMILY_PROB_TOL), and the card's f32 logits against
+              the CPU's on two images (1e-3, TF32 off); (d) Grad-CAM at
+              batch 8 (K2 once, K1 never; the map within FAMILY_CAM_TOL of
+              the f32 map, the card's and the CPU's f32 maps within 1e-4);
+              (e) the .irpx at batch 64 with its explain program, exported
+              on the card, its probabilities and maps bit-equal to the live
+              predictor's.  Then images/s of predict_probs of the three and
+              ResNet50 (the serve phase's, K1 'auto') in turns, forward and
+              backward, at 64 and 256; and one daemon on the ViT-B/16
+              .npz: 2 rounds of 64 JPEG /predict and 8 /explain from 8
+              client threads, every answer 200, /healthz family vit with no
+              depth, K2 once per dispatch and K1 never.
+7. curation — embedding outlier detection at the Animals-10 scale:
               26,179 synthetic 256x256 images (10 classes, each a smooth
               pattern plus noise, 1% planted with another class's
               pattern) through extract_features (ResNet50/224 bf16, batch
@@ -95,14 +118,14 @@ Phases, each printing one JSON line:
               (eval_preprocess once per batch, pairwise_topk once per kNN
               row block).  Prints images/s of extract_features, seconds
               per stage and the share of planted images flagged.
-7. bench    — python -m irp_tpu_torch.tools.bench_fused_block: the fused
+8. bench    — python -m irp_tpu_torch.tools.bench_fused_block: the fused
               block beside its bound, the unfused block, the copy floor
               and torch.relu at B=256.
               Gates: the bottleneck's max|kernel - plain| / max|plain|
               from the tool's run within 2^-6 at each shape, and the
               copy floor bit for bit against clamp_min(0) on one B=256
               input per shape.
-8. train    — fit, the fine-tune, at ResNet50/224 bf16 with K1 on
+9. train    — fit, the fine-tune, at ResNet50/224 bf16 with K1 on
               ('auto'), medium augmentation, adam on OneCycle with class
               weights, batch 32, 2 epochs of 32 steps on 2,048 synthetic
               class-pattern images, eval on 512 each epoch.  Gates: finite
@@ -113,7 +136,7 @@ Phases, each printing one JSON line:
               from the f32 step (K1_STEP_*_TOL); the f32 'highest' step on
               the card against the CPU's (CARD_CPU_*_TOL).  Prints train
               images/s at batch 32 and 256 with K1 on and off.
-9. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
+10. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
               WebDataset shards of 3,072 synthetic 256x256 JPEGs written
               from the seed by the port's ShardWriter, then
               hyperopt_cli.main --quick (B=16, 2 epochs) with 3 trials x 3
@@ -133,7 +156,7 @@ Phases, each printing one JSON line:
               subset_by_shards's as a multiset.  Prints
               seconds per trial and per fold-fit, the pool's upload and
               select_fold times, and peak memory.
-10. final   — final training, test evaluation and batch prediction,
+11. final   — final training, test evaluation and batch prediction,
               ResNet50/224 bf16, 10 classes, random init: 12 train
               shards (3,072 images) and 4 test shards (1,024 images of
               the same classes, another seed) written by the port's
@@ -155,7 +178,7 @@ Phases, each printing one JSON line:
               probabilities bit-equal on one batch.  Prints the fit's
               seconds and train images/s, the test evaluation's seconds
               and images/s, predict_cli's images/s and peak memory.
-11. profile — only when named in --phases: torch.profiler over batches
+12. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -197,8 +220,8 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
                                                    n_sets)
 
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
-PHASES = ("device", "build", "kernels", "serve", "explain", "curation",
-          "bench", "train", "hyperopt", "final")
+PHASES = ("device", "build", "kernels", "serve", "explain", "families",
+          "curation", "bench", "train", "hyperopt", "final")
 EXTRA_PHASES = ("profile",)  # run only when named
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -1277,6 +1300,320 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"explain checks failed: {failed}")
+
+
+# The families phase: one model of each other family at full width, as
+# (family, variant).  Each serves as the ResNet50 of the serve phase does.
+FAMILY_MODELS = (("vit", "b_16"), ("convnext", "tiny"),
+                 ("efficientnet", "b0"))
+FAMILY_BATCHES = (64, 256)  # predict_probs images/s, as the serve phase
+FAMILY_EXPORT_BATCH = 64
+# bf16 against the card's f32 forward (no TF32), per family: the largest
+# |dprob| over seed 0's 64 images and the Grad-CAM map's max|diff| over
+# its first 8, each bar twice the drift measured on an H100 80GB HBM3 at
+# 700 W (|dprob| ViT 0.00314, ConvNeXt 0.00255, EfficientNet 9.9e-5;
+# maps 0.2205, 0.1700, 0.0243; PERF.md §2)
+FAMILY_PROB_TOL = {"vit": 6.3e-3, "convnext": 5.2e-3, "efficientnet": 2.0e-4}
+FAMILY_CAM_TOL = {"vit": 0.45, "convnext": 0.34, "efficientnet": 0.049}
+FAMILY_CPU_LOGIT_TOL = 1e-3  # f32 card vs CPU logits: the fidelity bar
+N_FAMILY_EXPLAINS = 8  # /explain requests to the ViT daemon, one a client
+
+
+def _family_model(family: str, variant: str, seed: int):
+    """The family's classifier at full width (224 crop, 10 classes, MLP
+    head 512, bf16) with weights from a seeded generator: flax's
+    initializers, then the norms' scales and shifts, BatchNorm's running
+    statistics, ConvNeXt's layer scales and ViT's class token drawn
+    away from their init values (so that each layer does work)."""
+    from irp_tpu_torch.cli.model_args import model_config_for_family
+    from irp_tpu_torch.models.classifier import Classifier
+
+    cfg = model_config_for_family(
+        family, vit_variant=variant, efficientnet_variant=variant,
+        convnext_variant=variant, num_classes=N_CLASSES, image_size=224,
+        hidden_dim=512)
+    gen = torch.Generator().manual_seed(seed)
+    model = Classifier(cfg)
+    model.init_weights(gen)
+    norms = {name for name, m in model.named_modules()
+             if isinstance(m, (torch.nn.LayerNorm, torch.nn.BatchNorm2d))}
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            owner, _, leaf = key.rpartition(".")
+            if leaf == "running_mean":
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+            elif leaf == "running_var":
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif leaf == "layer_scale":
+                t.copy_(0.1 + 0.4 * torch.rand(t.shape, generator=gen))
+            elif leaf == "class_token":
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+            elif owner in norms and leaf == "weight":
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif owner in norms and leaf == "bias":
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+    return model.eval()
+
+
+def _architecture(cfg) -> dict:
+    """The fields of a config that fix a family's forward."""
+    keys = {"vit": ("patch_size", "embed_dim", "num_layers", "mlp_dim",
+                    "num_heads"),
+            "efficientnet": ("width_mult", "depth_mult"),
+            "convnext": ("convnext_dims", "convnext_depths")}[cfg.family]
+    return {k: getattr(cfg, k) for k in ("family", "image_size",
+                                         "num_classes", "hidden_dim", *keys)}
+
+
+def phase_families(out: dict, seed: int) -> None:
+    """ViT-B/16, ConvNeXt-Tiny and EfficientNet-B0 served through
+    load_predictor, Grad-CAM and the .irpx, then a ViT daemon."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _families_phase(out, seed, tmp)
+
+
+def _family_run(family: str, variant: str, seed: int, tmp: str,
+                images: np.ndarray, launches: dict) -> tuple:
+    """One family: .npz and .pth, predict_probs, bf16 drift, card vs CPU,
+    Grad-CAM and the .irpx; its launches are added to ``launches``.
+    Returns (report, checks, .npz path, predictors by batch, a batch of
+    each size)."""
+    from irp_tpu_torch.explain import GradCAM
+    from irp_tpu_torch.export import export_predictor, read_export_meta
+    from irp_tpu_torch.infer import load_predictor
+    from irp_tpu_torch.models.convert import state_dict_to_jax_variables
+    from irp_tpu_torch.train.checkpoint import (export_torch_pth,
+                                                save_weights_npz)
+
+    model = _family_model(family, variant, seed)
+    cfg = model.config
+    variables = state_dict_to_jax_variables(model.state_dict())
+    npz = save_weights_npz(f"{tmp}/{family}_{variant}.npz",
+                           variables["params"], variables["batch_stats"],
+                           meta={"image_size": cfg.image_size})
+    pth = export_torch_pth(f"{tmp}/{family}_{variant}.pth", model)
+    del model
+    checks, report = {}, {"model": f"{family} {variant}, 224, 10 classes, "
+                                   "hidden 512, bf16"}
+    preds = {b: load_predictor(npz, batch_size=b) for b in FAMILY_BATCHES}
+    pred = preds[FAMILY_BATCHES[0]]
+    got = _architecture(pred.model.config)
+    checks["npz_infers_family_and_variant"] = got == _architecture(cfg)
+    from_pth = load_predictor(pth, batch_size=FAMILY_BATCHES[0],
+                              image_size=cfg.image_size)
+    checks["pth_probs_equal_npz"] = bool(np.array_equal(
+        from_pth.predict_probs(images), pred.predict_probs(images)))
+    del from_pth
+
+    # predict_probs on the card: K2 once a batch, K1 never
+    rng = np.random.default_rng(seed + 5)
+    batches = {b: rng.integers(0, 256, (b, 256, 256, 3), np.uint8)
+               for b in FAMILY_BATCHES}
+    for b, p in preds.items():
+        p.predict_probs(batches[b])  # warm (cuDNN's algorithm choice)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    for b, p in preds.items():
+        p.predict_probs(batches[b])
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    checks["predict_k2_once_per_batch_k1_never"] = counts == {
+        "eval_preprocess": len(FAMILY_BATCHES), "identity_bottleneck": 0}
+    _add_launches(launches, counts)
+
+    # bf16 against the card's f32 forward, and the card's f32 against the
+    # CPU's f32 on two images (TF32 off: 'highest' and cuBLAS's default)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    f32 = load_predictor(npz, batch_size=FAMILY_BATCHES[0], cfg=_f32(cfg))
+    p_bf16, p_f32 = pred.predict_probs(images), f32.predict_probs(images)
+    drift = float(np.abs(p_bf16 - p_f32).max())
+    cpu = load_predictor(npz, batch_size=2, device="cpu", cfg=_f32(cfg))
+    cpu_logit_diff = float(np.abs(_logits(cpu, images[:2])
+                                  - _logits(f32, images[:2])).max())
+    checks.update({
+        "probs_finite_sum_1": bool(np.isfinite(p_bf16).all() and np.all(
+            np.abs(p_bf16.sum(1) - 1) < 1e-4)),
+        "bf16_vs_f32_prob_le_tol": drift <= FAMILY_PROB_TOL[family],
+        "card_f32_vs_cpu_f32_logits_le_1e-3":
+        cpu_logit_diff <= FAMILY_CPU_LOGIT_TOL})
+
+    # Grad-CAM at batch 8
+    eight = images[:EXPLAIN_BATCH]
+    gc = GradCAM(pred, batch_size=EXPLAIN_BATCH)
+    gc.explain(eight)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    cams, logits = gc.explain(eight)
+    torch.cuda.synchronize()
+    gc_counts = _launch_counts()
+    _add_launches(launches, gc_counts)
+    cams32, _ = GradCAM(f32, batch_size=EXPLAIN_BATCH).explain(eight)
+    cam_drift = float(np.abs(cams - cams32).max())
+    cams_cpu, _ = GradCAM(cpu).explain(eight[:2])
+    cams32_2, _ = GradCAM(f32, batch_size=2).explain(eight[:2])
+    cam_cpu_diff = float(np.abs(cams_cpu - cams32_2).max())
+    checks.update({
+        "gradcam_k2_once_k1_never": gc_counts == {
+            "eval_preprocess": 1, "identity_bottleneck": 0},
+        "cams_finite_in_0_1": bool(np.isfinite(cams).all()
+                                   and cams.min() >= 0 and cams.max() <= 1),
+        "cam_bf16_vs_f32_le_tol": cam_drift <= FAMILY_CAM_TOL[family],
+        "card_f32_vs_cpu_f32_cam_le_1e-4": cam_cpu_diff <= EXPLAIN_CPU_TOL})
+    del f32, cpu
+
+    # the .irpx at batch 64 with its explain program, on the card
+    irpx = f"{tmp}/{family}_{variant}.irpx"
+    t0 = time.perf_counter()
+    export_predictor(pred, irpx, gradcam_batch_size=EXPLAIN_BATCH)
+    export_s = time.perf_counter() - t0
+    meta = read_export_meta(irpx)
+    art = load_predictor(irpx)
+    _zero_launch_counts()
+    art_probs = art.predict_probs(images)
+    art_cams = GradCAM(art).explain(eight)
+    torch.cuda.synchronize()
+    art_counts = _launch_counts()
+    _add_launches(launches, art_counts)
+    live_cams = gc.explain(eight)
+    checks.update({
+        "irpx_family_unfused": meta["model_config"]["family"] == family
+        and meta["fused_frozen_blocks"] == "off",
+        "irpx_probs_bit_equal_live": bool(np.array_equal(
+            art_probs, pred.predict_probs(images))),
+        "irpx_explain_bit_equal_live": all(
+            bool(np.array_equal(a, b)) for a, b in zip(art_cams, live_cams)),
+        "irpx_k2_once_each_k1_never": art_counts == {
+            "eval_preprocess": 2, "identity_bottleneck": 0}})
+    report.update({
+        "prob_drift_bf16_vs_f32": drift,
+        "logit_diff_card_f32_vs_cpu_f32": cpu_logit_diff,
+        "gradcam_ms_per_batch_8": _cuda_ms(lambda: gc.explain(eight)),
+        "cam_drift_bf16_vs_f32": cam_drift,
+        "cam_diff_card_f32_vs_cpu_f32": cam_cpu_diff,
+        "export_seconds": export_s,
+        "launches": {"predict": counts, "gradcam": gc_counts,
+                     "irpx": art_counts}})
+    return report, checks, npz, preds, batches
+
+
+def _add_launches(total: dict, counts: dict) -> None:
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+
+
+def _families_phase(out: dict, seed: int, tmp: str) -> None:
+    from irp_tpu_torch.client import ServingClient
+    from irp_tpu_torch.data.pipeline import decode_blobs
+    from irp_tpu_torch.infer import load_predictor, serving_buckets
+    from irp_tpu_torch.serve import make_server
+    from irp_tpu_torch.train.checkpoint import save_weights_npz
+
+    blobs = _jpegs(seed + 2, 64)
+    images = decode_blobs(blobs)
+    launches: dict = {}
+    checks, timed, npzs = {}, {}, {}
+    for family, variant in FAMILY_MODELS:
+        t0 = time.perf_counter()
+        report, fam_checks, npzs[family], preds, batches = _family_run(
+            family, variant, seed, tmp, images, launches)
+        timed[family] = (preds, batches)
+        report["seconds"] = time.perf_counter() - t0
+        checks.update({f"{family}_{k}": v for k, v in fam_checks.items()})
+        emit({"phase": "families", "family": family, **report,
+              "checks": fam_checks})
+
+    # images/s of the four families in turns (ResNet50 as the serve
+    # phase's, K1 'auto'), forward then backward, at each batch
+    variables = _random_variables(seed)
+    resnet = f"{tmp}/resnet50_224.npz"
+    save_weights_npz(resnet, variables["params"], variables["batch_stats"],
+                     meta={"image_size": 224})
+    timed["resnet50"] = ({b: load_predictor(resnet, batch_size=b)
+                          for b in FAMILY_BATCHES},
+                         next(iter(timed.values()))[1])
+    order = ["resnet50"] + [f for f, _ in FAMILY_MODELS]
+    ips = {name: {} for name in order}
+    for b in FAMILY_BATCHES:
+        for name in order + order[::-1]:
+            preds, batches = timed[name]
+            ips[name].setdefault(str(b), []).append(
+                _images_per_s(preds[b], batches[b]))
+    del timed
+    emit({"phase": "families", "part": "images_per_s_in_turns",
+          "order": order + order[::-1], "images_per_s": ips})
+
+    # one daemon: the ViT-B/16 .npz, 2 rounds of 64 /predict and 8
+    # /explain from 8 client threads
+    pred = load_predictor(npzs["vit"], batch_size=64,
+                          pad_buckets=serving_buckets("auto", 64))
+    for n in pred.pad_buckets:
+        pred.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+    server = make_server(pred, port=0, window_ms=5.0,
+                         max_concurrent_explains=N_FAMILY_EXPLAINS)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    errors, bad = [], []
+
+    def client(k: int) -> None:
+        c = ServingClient(url, timeout_s=120)
+        try:
+            for i in range(k, N_REQUESTS, N_CLIENTS):
+                c.predict(blobs[i], topk=1)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"predict {k}: {e!r}")
+
+    def explainer(k: int) -> None:
+        path = f"{tmp}/vit_overlay_{k}.png"
+        try:
+            ServingClient(url, timeout_s=120).explain(blobs[k],
+                                                      overlay_path=path)
+            if not _png_opens(path):
+                bad.append(f"explain {k}: no PNG")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"explain {k}: {e!r}")
+
+    def run(target, n):
+        threads = [threading.Thread(target=target, args=(k,))
+                   for k in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+
+    try:
+        ServingClient(url).wait_until_ready(timeout_s=60)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        run(client, N_CLIENTS)
+        run(client, N_CLIENTS)
+        run(explainer, N_FAMILY_EXPLAINS)
+        wall = time.perf_counter() - t0
+        daemon_counts = _launch_counts()
+        client_ = ServingClient(url)
+        stats, health = client_.stats(), client_.healthz()
+    finally:
+        server.stop()
+    _add_launches(launches, daemon_counts)
+    dispatches = stats["batches"] + stats["explain"]["requests"]
+    checks.update({
+        "daemon_all_200": not errors and not bad,
+        "daemon_requests_counted": stats["requests"] == 2 * N_REQUESTS
+        and stats["explain"]["requests"] == N_FAMILY_EXPLAINS,
+        "daemon_k2_once_per_dispatch_k1_never": daemon_counts == {
+            "eval_preprocess": dispatches, "identity_bottleneck": 0},
+        "healthz_vit_without_depth": health["model"]["family"] == "vit"
+        and "depth" not in health["model"]})
+    out["launches"]["families"] = launches
+    emit({"phase": "families", "part": "daemon", "model": "vit b_16",
+          "wall_s": wall, "predict_batches": stats["batches"],
+          "mean_batch_fill": stats["mean_batch_fill"],
+          "latency_ms": stats.get("latency_ms"),
+          "explain_latency_ms": stats["explain"].get("latency_ms"),
+          "launches": daemon_counts, "failed": (errors + bad)[:5]})
+    emit({"phase": "families", "launches": launches, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"families checks failed: {failed}")
 
 
 def _curation_images(seed: int, n: int, patterns_seed=None):
@@ -2722,6 +3059,8 @@ def main(argv=None) -> int:
         phase_serve(out, args.seed)
     if "explain" in phases:
         phase_explain(out, args.seed)
+    if "families" in phases:
+        phase_families(out, args.seed)
     if "curation" in phases:
         phase_curation(out, args.seed)
     if "bench" in phases:

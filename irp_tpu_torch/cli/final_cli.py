@@ -25,7 +25,8 @@ import sys
 
 from irp_tpu_torch.cli.model_args import (add_model_family_args,
                                           add_train_recipe_args,
-                                          build_model_base, build_train_base)
+                                          build_model_base, build_train_base,
+                                          refuse_untrained_family)
 
 
 def main(argv=None):
@@ -58,8 +59,7 @@ def main(argv=None):
     if args.resume and not args.checkpoint_dir:
         print("--resume requires --checkpoint-dir", file=sys.stderr)
         return 2
-    if args.family != "resnet":
-        build_model_base(args, 1)  # raises NotImplementedError
+    refuse_untrained_family(args.family)
 
     from irp_tpu_torch import tracking
     from irp_tpu_torch._kernels import resolve_device

@@ -1,9 +1,13 @@
 """Shared --family/--depth/--*-variant and training-recipe flags of the
 training CLIs (the JAX package's ``cli/model_args.py``).
 
-The flags are the JAX package's, so a command line carries over.  Only
-``--family resnet`` runs in the port: the other families raise
-``NotImplementedError`` (ROADMAP A13).
+The flags are the JAX package's, so a command line carries over:
+``--family resnet --depth 50``, ``--family vit --vit-variant b_16``,
+``--family efficientnet --efficientnet-variant b0`` or ``--family
+convnext --convnext-variant tiny`` (the variant tables of
+``models/vit.py``, ``models/efficientnet.py``, ``models/convnext.py``).
+The port serves every family; training one other than ResNet is ROADMAP
+A13b, and the training CLIs refuse it (:func:`refuse_untrained_family`).
 """
 
 from __future__ import annotations
@@ -14,8 +18,9 @@ def add_model_family_args(parser) -> None:
                         choices=("resnet", "vit", "efficientnet",
                                  "convnext"),
                         default="resnet",
-                        help="backbone family (default: resnet; the others "
-                             "are not ported yet)")
+                        help="backbone family (default: resnet; the "
+                             "others serve, their training is not ported "
+                             "yet)")
     parser.add_argument("--depth", type=int, default=50,
                         help="ResNet depth 18/34/50/101/152 "
                              "(--family resnet only)")
@@ -30,22 +35,48 @@ def add_model_family_args(parser) -> None:
                              "large (--family convnext only)")
 
 
-def model_config_for_family(family: str, *, depth: int = 50, **overrides):
-    """ModelConfig for a family; the families other than resnet raise."""
+def model_config_for_family(family: str, *, depth: int = 50,
+                            vit_variant: str = "b_16",
+                            efficientnet_variant: str = "b0",
+                            convnext_variant: str = "tiny", **overrides):
+    """ModelConfig for a (family, variant) pair: the one construction
+    point of the CLIs."""
     from irp_tpu_torch.config import ModelConfig
 
-    if family != "resnet":
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet (ROADMAP.md, Queue 1, "
-            f"A13: the other model families)")
+    if family == "vit":
+        from irp_tpu_torch.models.vit import vit_model_config
+
+        return vit_model_config(vit_variant, **overrides)
+    if family == "efficientnet":
+        from irp_tpu_torch.models.efficientnet import (
+            efficientnet_model_config)
+
+        return efficientnet_model_config(efficientnet_variant, **overrides)
+    if family == "convnext":
+        from irp_tpu_torch.models.convnext import convnext_model_config
+
+        return convnext_model_config(convnext_variant, **overrides)
     return ModelConfig(depth=depth, **overrides)
 
 
 def build_model_base(args, num_classes: int):
     """ModelConfig from parsed family args + the dataset's class count."""
     return model_config_for_family(
-        args.family, depth=args.depth, num_classes=num_classes,
+        args.family, depth=args.depth, vit_variant=args.vit_variant,
+        efficientnet_variant=args.efficientnet_variant,
+        convnext_variant=args.convnext_variant, num_classes=num_classes,
         image_size=args.image_size, pretrained_path=args.pretrained)
+
+
+def refuse_untrained_family(family: str) -> None:
+    """The training CLIs train the ResNet family only: raise for another
+    (its train-mode forward and freezing are ROADMAP A13b)."""
+    if family != "resnet":
+        raise NotImplementedError(
+            f"training family {family!r} is not ported yet (ROADMAP.md, "
+            f"Queue 1, A13b: the train-mode forward, freezing, remat and "
+            f"fit of the other families; they serve through "
+            f"load_predictor)")
 
 
 def add_train_recipe_args(parser) -> None:

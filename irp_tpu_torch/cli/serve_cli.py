@@ -147,7 +147,8 @@ def main(argv=None) -> int:
                          weights_path=args.weights)
     cfg = predictor.model.config
     shapes = predictor.pad_buckets or (predictor.batch_size,)
-    print(f"warming ResNet{cfg.depth} forward on {predictor.device} "
+    name = f"ResNet{cfg.depth}" if cfg.family == "resnet" else cfg.family
+    print(f"warming {name} forward on {predictor.device} "
           f"(crop {cfg.image_size}, batch sizes {list(shapes)}, "
           f"fused_frozen_blocks {cfg.fused_frozen_blocks}"
           f"{', exported program' if predictor.exported else ''}) ...",

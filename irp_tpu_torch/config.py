@@ -3,9 +3,9 @@
 The port's own copy of the constants and of ``ModelConfig``,
 ``DatasetInfo`` and ``TrainConfig`` from the JAX package's ``config.py``:
 the same fields with the same defaults, so that a configuration means the
-same model and the same training run in both packages.  Only the ResNet
-family runs in this port so far; the other families' fields are kept so
-that a configuration carries over unchanged.
+same model and the same training run in both packages.  All four families
+(ResNet, ViT, EfficientNet, ConvNeXt) serve; only the ResNet family
+trains so far (ROADMAP A13b).
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ class DatasetInfo:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """ResNet backbone + MLP-head classifier.
+    """Backbone (``family``: 'resnet', 'vit', 'efficientnet' or
+    'convnext') + MLP-head classifier.
 
     ``fused_frozen_blocks`` routes the frozen identity bottlenecks of a
     bottleneck ResNet through the hand-written CUDA kernel

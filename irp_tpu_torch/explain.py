@@ -1,26 +1,37 @@
 """Grad-CAM over a :class:`~irp_tpu_torch.infer.Predictor` (the JAX
-package's ``explain.py``).
+package's ``explain.py``), for the four model families.
 
 Class-discriminative maps (Grad-CAM, Selvaraju et al. 2017): which regions
-of an image drove a prediction.  For each image the backbone runs to the
-pre-pool map A (B, C, h, w) (the Predictor's own eval preprocess, K2 on the
-card, and its backbone, K1 in the frozen identity blocks); the head gives
-the logits; the channel weights are a_k = GAP(d logit_c / dA_k); the map is
-ReLU(sum_k a_k A_k), min-max normalized per image and upsampled
-(bilinear) to the eval crop.
+of an image drove a prediction.  For each image the backbone runs to a map
+A (the Predictor's own eval preprocess, K2 on the card, and its backbone,
+K1 in a ResNet's frozen identity blocks); the head gives the logits; the
+channel weights are a_k = GAP(d logit_c / dA_k); the map is
+ReLU(sum_k a_k A_k), min-max normalized per image and upsampled (bilinear)
+to the eval crop.
 
-The derivative is the head's, in closed form, not autograd's: the eval
-head is Linear -> ReLU -> Linear on the global average pool (dropout is
-the identity), so with z = dense1(pool(A)),
+The derivative is written out in closed form, in float32, not taken by
+autograd: it runs under ``torch.inference_mode()`` with no graph kept,
+and ``torch.export`` takes it as plain ops, so an ``.irpx`` can bake the
+explain program (``export.py``).  ReLU's derivative at 0 is 0, as in both
+frameworks.
 
-    d logit_c / d pool(A) = W1^T ((z > 0) * W2[c])
+- ResNet, EfficientNet: A is the pre-pool map (B, C, h, w); the eval head
+  is Linear -> ReLU -> Linear on the global average pool, so with
+  z = dense1(pool(A)), d logit_c / d pool(A) = W1^T ((z > 0) * W2[c]),
+  and d logit_c / dA is that over h*w at every position.
+- ConvNeXt: the final LayerNorm sits between the pool and the head, so
+  that vector goes back through the LayerNorm
+  (:func:`layer_norm_vjp`) first.
+- ViT: only the CLS token reaches the head, so A is the token sequence
+  entering the LAST encoder block; the derivative runs back through the
+  head, the final LayerNorm, the last block's MLP and its attention
+  (:func:`vit_logits_and_token_grad`): the CLS row's query, and the keys
+  and values of every token.  The CLS token is dropped and the patch
+  tokens, reshaped to the grid, are the map.
 
-and d logit_c / dA is that divided by h*w at every position, in float32.
-It equals the JAX package's VJP of the head (``tests/test_torch_explain.py``
-holds it against ``torch.autograd`` and against JAX), runs under
-``torch.inference_mode()`` with no graph kept, and ``torch.export`` takes
-it as plain ops, so an ``.irpx`` can bake the explain program
-(``export.py``).  ReLU's derivative at 0 is 0, as in both frameworks.
+``tests/test_torch_explain.py`` and ``tests/test_torch_{vit,efficientnet,
+convnext}.py`` hold the derivatives against ``torch.autograd`` and the
+maps against the JAX package's VJP.
 """
 
 from __future__ import annotations
@@ -34,20 +45,118 @@ import torch.nn.functional as F
 
 from irp_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from irp_tpu_torch.infer import input_dtype
+from irp_tpu_torch.models.layers import global_pool
 from irp_tpu_torch.ops.preprocess import eval_preprocess_batch
+
+
+def layer_norm_vjp(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                   g: torch.Tensor) -> torch.Tensor:
+    """d/dx of sum(g * LayerNorm(x)) over the last axis, in float32."""
+    x = x.float()
+    xc = x - x.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gx = g * weight.float()
+    return rstd * (gx - gx.mean(dim=-1, keepdim=True)
+                   - xhat * (gx * xhat).mean(dim=-1, keepdim=True))
+
+
+def _target(logits: torch.Tensor, class_idx: torch.Tensor) -> torch.Tensor:
+    return torch.where(class_idx < 0, logits.argmax(dim=-1),
+                       class_idx.to(torch.int64))
+
+
+def _head_grad(model, feats: torch.Tensor, target: torch.Tensor):
+    """d logit_target / d feats (B, C) float32 of the eval head on the
+    features ``feats`` it reads."""
+    dense1, dense2 = model.classifier[1], model.classifier[4]
+    z = dense1(feats)
+    gate = (z > 0).to(torch.float32) * dense2.weight.float()[target]
+    return gate @ dense1.weight.float()
 
 
 def head_logits_and_grad(model, acts: torch.Tensor, class_idx: torch.Tensor):
     """Eval-form logits of the map ``acts`` (B, C, h, w) float32 and the
     derivative of each row's selected logit by the pooled map, (B, C)
-    float32.  ``class_idx`` (B,) int: -1 selects the argmax class."""
-    dense1, dense2 = model.classifier[1], model.classifier[4]
+    float32.  ``class_idx`` (B,) int: -1 selects the argmax class.  A
+    ConvNeXt's pool is followed by its final LayerNorm, which the
+    derivative goes back through."""
+    backbone = model.backbone
     logits = model.head_from_spatial(acts)
-    z = dense1(model.backbone.pool(acts))
-    target = torch.where(class_idx < 0, logits.argmax(dim=-1),
-                         class_idx.to(torch.int64))
-    gate = (z > 0).to(torch.float32) * dense2.weight.float()[target]
-    return logits, gate @ dense1.weight.float()
+    target = _target(logits, class_idx)
+    d_feats = _head_grad(model, backbone.pool(acts), target)
+    if model.config.family == "convnext":
+        pooled = global_pool(acts, backbone.compute_dtype)
+        d_feats = layer_norm_vjp(pooled, backbone.ln.weight, backbone.ln.eps,
+                                 d_feats)
+    return logits, d_feats
+
+
+def _ln(x: torch.Tensor, ln) -> torch.Tensor:
+    return F.layer_norm(x, ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps)
+
+
+def _gelu_grad(u: torch.Tensor) -> torch.Tensor:
+    """d gelu(u) / du of the exact (erf) GELU."""
+    return (0.5 * (1.0 + torch.erf(u * 0.5 ** 0.5))
+            + u * torch.exp(-0.5 * u * u) * (2.0 * torch.pi) ** -0.5)
+
+
+def vit_logits_and_token_grad(model, tokens: torch.Tensor,
+                              class_idx: torch.Tensor):
+    """ViT: the eval-form logits of the tokens (B, S, E) entering the last
+    block, and d logit_target / d tokens (B, S, E) float32.
+
+    The logits are the model's own (``vit_logits_from_tokens``).  The
+    derivative recomputes the suffix in float32 (last block, final
+    LayerNorm of the CLS row, head) and runs it backward by hand: head ->
+    final LayerNorm -> MLP residual -> attention residual of the CLS row
+    -> softmax over the CLS row's scores -> the CLS query, and the keys
+    and values of every token -> the packed projection -> ln_1.
+    """
+    logits = model.vit_logits_from_tokens(tokens)
+    target = _target(logits, class_idx)
+    blk = model.backbone.encoder.layers[-1]
+    attn = blk.self_attention
+    fc1, fc2 = blk.mlp[0], blk.mlp[3]
+    x = tokens.float()
+    b, s, e = x.shape
+    h = attn.num_heads
+    d = e // h
+    scale = d ** -0.5
+    # forward of what reaches the CLS feature, float32
+    w_in = attn.in_proj_weight.float()
+    y1 = _ln(x, blk.ln_1)
+    qkv = (y1 @ w_in.T + attn.in_proj_bias.float()).view(b, s, 3, h, d)
+    q0 = qkv[:, 0, 0]  # the CLS query, (B, H, D)
+    k = qkv[:, :, 1].transpose(1, 2)  # (B, H, S, D)
+    v = qkv[:, :, 2].transpose(1, 2)
+    a = torch.softmax((k @ q0[..., None])[..., 0] * scale, dim=-1)
+    o = (a[:, :, None, :] @ v)[:, :, 0].reshape(b, e)
+    wo = attn.out_proj.weight.float()
+    x0 = x[:, 0] + o @ wo.T + attn.out_proj.bias.float()
+    u = _ln(x0, blk.ln_2) @ fc1.weight.float().T + fc1.bias.float()
+    x1 = x0 + F.gelu(u) @ fc2.weight.float().T + fc2.bias.float()
+    ln_f = model.backbone.encoder.ln
+    # backward
+    g_feats = _head_grad(model, _ln(x1, ln_f), target)
+    g_x1 = layer_norm_vjp(x1, ln_f.weight, ln_f.eps, g_feats)
+    g_u = (g_x1 @ fc2.weight.float()) * _gelu_grad(u)
+    g_x0 = g_x1 + layer_norm_vjp(x0, blk.ln_2.weight, blk.ln_2.eps,
+                                 g_u @ fc1.weight.float())
+    g_o = (g_x0 @ wo).view(b, h, 1, d)
+    g_a = (v @ g_o.transpose(-1, -2))[..., 0]  # (B, H, S)
+    g_s = a * (g_a - (a * g_a).sum(dim=-1, keepdim=True)) * scale
+    g_q0 = (g_s[:, :, None, :] @ k)  # (B, H, 1, D)
+    g_k = g_s[..., None] * q0[:, :, None, :]
+    g_v = a[..., None] * g_o
+    g_q = torch.cat([g_q0, g_q0.new_zeros((b, h, s - 1, d))], dim=2)
+    g_qkv = torch.stack([g_q, g_k, g_v], dim=2)  # (B, H, 3, S, D)
+    g_y1 = g_qkv.permute(0, 3, 2, 1, 4).reshape(b, s, 3 * e) @ w_in
+    g_x = layer_norm_vjp(x, blk.ln_1.weight, blk.ln_1.eps, g_y1)
+    g_x = g_x + F.pad(g_x0[:, None], (0, 0, 0, s - 1))
+    return logits, g_x
 
 
 def cam_forward(model, images_u8: torch.Tensor, class_idx: torch.Tensor):
@@ -55,11 +164,21 @@ def cam_forward(model, images_u8: torch.Tensor, class_idx: torch.Tensor):
     (cams (B, crop, crop) float32 in [0, 1], logits (B, K) float32)."""
     cfg = model.config
     x = eval_preprocess_batch(images_u8, cfg.image_size, input_dtype(cfg),
-                              IMAGENET_MEAN, IMAGENET_STD)
-    acts = model.spatial_features(x.permute(0, 3, 1, 2)).float()
-    logits, d_pooled = head_logits_and_grad(model, acts, class_idx)
-    h, w = acts.shape[2:]
-    alpha = d_pooled / (h * w)  # GAP of d logit / dA: the same everywhere
+                              IMAGENET_MEAN, IMAGENET_STD).permute(0, 3, 1, 2)
+    if cfg.family == "vit":
+        tokens = model.vit_tokens(x).float()
+        logits, d_tokens = vit_logits_and_token_grad(model, tokens,
+                                                     class_idx)
+        b, s, e = tokens.shape
+        g = cfg.image_size // cfg.patch_size
+        # drop CLS; the patch tokens are the (g x g) map
+        acts = tokens[:, 1:].reshape(b, g, g, e).permute(0, 3, 1, 2)
+        alpha = d_tokens[:, 1:].mean(dim=1)  # GAP of d logit / dA
+    else:
+        acts = model.spatial_features(x).float()
+        logits, d_pooled = head_logits_and_grad(model, acts, class_idx)
+        h, w = acts.shape[2:]
+        alpha = d_pooled / (h * w)  # GAP of d logit / dA: uniform here
     cam = torch.relu((alpha[:, :, None, None] * acts).sum(dim=1))
     lo = cam.amin(dim=(1, 2), keepdim=True)
     hi = cam.amax(dim=(1, 2), keepdim=True)

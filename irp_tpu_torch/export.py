@@ -7,10 +7,10 @@ An ``.irpx`` of this package holds:
                      -> probs`` at a fixed (batch, source, source, 3) uint8
                      shape: eval preprocess (the op
                      ``irp_tpu_torch::eval_preprocess``, K2 on the card),
-                     the model (``irp_tpu_torch::identity_bottleneck``, K1,
-                     in each frozen identity block when the predictor ran
-                     them fused), softmax, and the flip average when TTA is
-                     on
+                     the model (any family; for a ResNet,
+                     ``irp_tpu_torch::identity_bottleneck``, K1, in each
+                     frozen identity block when the predictor ran them
+                     fused), softmax, and the flip average when TTA is on
     program.bN.pt2   the same forward at batch N, for each other rung of
                      the predictor's ``pad_buckets`` ladder
     explain.pt2      (optional) the Grad-CAM program ``forward(weights,
@@ -80,9 +80,11 @@ _FOLDED = "._folded."
 
 
 def resolve_fused(model, device) -> bool:
-    """Whether the model's forward on ``device`` runs K1: its
-    ``fused_frozen_blocks`` mode is active there and it has fusable
-    blocks."""
+    """Whether the model's forward on ``device`` runs K1: a ResNet whose
+    ``fused_frozen_blocks`` mode is active there, with fusable blocks
+    (the other families never run it)."""
+    if model.config.family != "resnet":
+        return False
     probe = torch.empty(0, device=device)
     return model.backbone.fuse_active(probe) and any(
         isinstance(m, Bottleneck) and m.fusable for m in model.modules())

@@ -1,9 +1,10 @@
 """Batched inference for trained classifiers (the JAX package's
 ``infer.py``).
 
-- Load a weights artifact: an ``.npz`` (``train/checkpoint.py``, written
-  by either package) or a torch ``.pth`` state_dict (torchvision ResNet
-  names, ``classifier.{1,4}`` head).
+- Load a weights artifact of any of the four families (ResNet, ViT,
+  EfficientNet, ConvNeXt): an ``.npz`` (``train/checkpoint.py``, written
+  by either package) or a torch ``.pth`` state_dict (torchvision names,
+  ``classifier.{1,4}`` head).
 - The architecture is inferred from the weight tree itself.
 - Preprocessing is the eval contract used at training time: center crop +
   ImageNet normalize from the 256x256 cache geometry
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -56,7 +58,8 @@ def probs_forward(model, images_u8: torch.Tensor,
                   tta: bool = False) -> torch.Tensor:
     """The predictor's forward: (B, H, W, 3) uint8 on the model's device
     -> (B, K) float32 softmax.  Eval preprocess (K2 on the card), the
-    model (K1 in its frozen identity blocks on the card), softmax; with
+    model (for a ResNet, K1 in its frozen identity blocks on the card),
+    softmax; with
     ``tta`` the mean of the identity's and the horizontal flip's."""
     from irp_tpu_torch.ops.preprocess import eval_preprocess_batch
 
@@ -75,21 +78,30 @@ def probs_forward(model, images_u8: torch.Tensor,
 def infer_model_config(params: dict, image_size: int = 224,
                        compute_dtype: str = "bfloat16",
                        fused_frozen_blocks: str = "off") -> ModelConfig:
-    """Reconstruct the ResNet ModelConfig a weight tree was trained with.
+    """Reconstruct the ModelConfig a weight tree was trained with.
 
-    ``params`` is the flax-layout tree an ``.npz`` stores.  Depth comes
+    ``params`` is the flax-layout tree an ``.npz`` stores.  ResNet: depth
     from the per-stage block counts and the block type (conv3 =>
-    bottleneck), ResNeXt/Wide widths from the first block's conv shapes,
-    head widths and class count from the head kernels.
+    bottleneck), ResNeXt/Wide widths from the first block's conv shapes.
+    ViT (a ``class_token``): patch, embed and mlp widths and the layer
+    count from leaf shapes, the input size from the pos_embedding length
+    (it overrides ``image_size``), heads embed // 64.  EfficientNet (a
+    ``stem_conv``): matched against the B0-B7 ladder by structure.
+    ConvNeXt (a ``stem_ln``, checked first: it has a ``stem_conv`` too):
+    per-stage dims and depths from the block tree.  Head widths and the
+    class count come from the head kernels.
     """
     backbone = params["backbone"]
-    for probe, family in (("stem_ln", "convnext"), ("stem_conv",
-                                                    "efficientnet"),
-                          ("class_token", "vit")):
-        if probe in backbone:
-            raise NotImplementedError(
-                f"a {family} weight tree: that family is not ported yet "
-                f"(ROADMAP.md, Queue 1, A13)")
+    head = dict(hidden_dim=int(np.shape(params["head_dense1"]["kernel"])[1]),
+                num_classes=int(np.shape(params["head_dense2"]["kernel"])[1]),
+                compute_dtype=compute_dtype,
+                fused_frozen_blocks=fused_frozen_blocks)
+    if "stem_ln" in backbone:
+        return _infer_convnext_config(backbone, image_size, head)
+    if "stem_conv" in backbone:
+        return _infer_efficientnet_config(backbone, image_size, head)
+    if "class_token" in backbone:
+        return _infer_vit_config(backbone, head)
     counts = [0, 0, 0, 0]
     bottleneck = False
     for key in backbone:
@@ -109,13 +121,79 @@ def infer_model_config(params: dict, image_size: int = 224,
         in_per_group = int(np.shape(block0["conv2"]["kernel"])[2])
         groups = width // in_per_group
         width_per_group = width // groups
-    hidden_dim = int(np.shape(params["head_dense1"]["kernel"])[1])
-    num_classes = int(np.shape(params["head_dense2"]["kernel"])[1])
-    return ModelConfig(depth=depth, num_classes=num_classes,
-                       image_size=image_size, hidden_dim=hidden_dim,
-                       groups=groups, width_per_group=width_per_group,
-                       compute_dtype=compute_dtype,
-                       fused_frozen_blocks=fused_frozen_blocks)
+    return ModelConfig(depth=depth, image_size=image_size, groups=groups,
+                       width_per_group=width_per_group, **head)
+
+
+def _infer_vit_config(backbone: dict, head: dict) -> ModelConfig:
+    embed = int(np.shape(backbone["class_token"])[-1])
+    patch = int(np.shape(backbone["conv_proj"]["kernel"])[0])
+    n_layers = sum(1 for k in backbone if k.startswith("block"))
+    mlp_dim = int(np.shape(backbone["block0"]["mlp_dense1"]["kernel"])[1])
+    seq = int(np.shape(backbone["pos_embedding"])[1])
+    grid = int(round((seq - 1) ** 0.5))
+    if grid * grid != seq - 1:
+        raise ValueError(
+            f"pos_embedding length {seq} is not a square grid + CLS")
+    # the pos_embedding pins the geometry: trust the weights
+    return ModelConfig(family="vit", patch_size=patch, embed_dim=embed,
+                       num_layers=n_layers, mlp_dim=mlp_dim,
+                       image_size=grid * patch, **head)
+
+
+def _infer_convnext_config(backbone: dict, image_size: int,
+                           head: dict) -> ModelConfig:
+    depths = [0, 0, 0, 0]
+    dims = [0, 0, 0, 0]
+    for key in backbone:
+        m = re.fullmatch(r"stage(\d)_block(\d+)", key)
+        if m:
+            s = int(m.group(1))
+            if not 1 <= s <= 4:
+                raise ValueError(f"unrecognized ConvNeXt stage in {key!r}")
+            depths[s - 1] += 1
+            dims[s - 1] = int(
+                np.shape(backbone[key]["dw_conv"]["kernel"])[-1])
+    if not all(depths):
+        raise ValueError(f"incomplete ConvNeXt stage tree "
+                         f"(block counts {depths})")
+    return ModelConfig(family="convnext", convnext_dims=tuple(dims),
+                       convnext_depths=tuple(depths), image_size=image_size,
+                       **head)
+
+
+def _infer_efficientnet_config(backbone: dict, image_size: int,
+                               head: dict) -> ModelConfig:
+    """Match the tree's per-stage block counts, stem, top and per-stage
+    widths against each named variant's scaled table."""
+    from irp_tpu_torch.models.efficientnet import (EFFICIENTNET_VARIANTS,
+                                                   STAGE_COUNT,
+                                                   scaled_setting,
+                                                   top_channels)
+
+    counts = [0] * STAGE_COUNT
+    for key in backbone:
+        if key.startswith("stage") and "_block" in key:
+            counts[int(key.split("_block")[0][len("stage"):]) - 1] += 1
+    stem_ch = int(np.shape(backbone["stem_conv"]["kernel"])[-1])
+    top_ch = int(np.shape(backbone["top_conv"]["kernel"])[-1])
+    stage_out = [int(np.shape(
+        backbone[f"stage{s + 1}_block0"]["project_conv"]["kernel"])[-1])
+        for s in range(STAGE_COUNT)]
+    for v in EFFICIENTNET_VARIANTS.values():
+        wm, dm = v["width_mult"], v["depth_mult"]
+        setting = scaled_setting(wm, dm)
+        if (counts == [s[5] for s in setting]
+                and stem_ch == setting[0][3]
+                and stage_out == [s[4] for s in setting]
+                and top_ch == top_channels(wm)):
+            return ModelConfig(family="efficientnet", width_mult=wm,
+                               depth_mult=dm, image_size=image_size, **head)
+    raise ValueError(
+        f"EfficientNet weight tree matches no named B0-B7 variant "
+        f"(stage blocks {counts}, stem {stem_ch}, top {top_ch}); "
+        f"non-standard width/depth multipliers need an explicit "
+        f"ModelConfig")
 
 
 @dataclass
@@ -196,7 +274,8 @@ class Predictor:
             return
         self.model = self.model.to(device=self.device,
                                    memory_format=torch.channels_last).eval()
-        self.model.backbone.cache_folded_weights()
+        if self.model.config.family == "resnet":
+            self.model.backbone.cache_folded_weights()
 
     @property
     def num_classes(self) -> int:
@@ -459,7 +538,8 @@ def load_predictor(weights_path: str,
     caller asks for the CPU; with no card, asking for CUDA raises).
 
     ``.npz`` = ``save_weights_npz`` output of either package; ``.pt/.pth``
-    = a torch ResNet state_dict with a ``classifier.{1,4}`` head.  A
+    = a torch state_dict of any family with a ``classifier.{1,4}`` head
+    (torchvision names, ``models/convert.py``).  A
     backbone-only checkpoint is rejected: a random head must never serve.
     The eval crop comes from (highest wins) ``cfg``, ``image_size``, the
     npz's ``image_size`` metadata, then 224.

@@ -3,11 +3,17 @@
 
 The head is ``Sequential(Dropout, Linear, ReLU, Dropout, Linear)``, so its
 keys are ``classifier.1`` / ``classifier.4`` as in the reference stack's
-AnimalClassifier; the backbone sits under ``backbone.``.  Only the ResNet
-family is ported so far.
+AnimalClassifier; the backbone sits under ``backbone.``.  Four families:
+ResNet (``models/resnet.py``), ViT (``models/vit.py``), EfficientNet
+(``models/efficientnet.py``) and ConvNeXt (``models/convnext.py``), with
+the JAX package's stage names and freezing rules
+(:func:`resolve_trainable_stages`).  The fused frozen-block kernel is a
+ResNet bottleneck kernel: ``fused_frozen_blocks='on'`` is refused for the
+other families and 'auto' runs them unfused.
 
-Training: the head's dropout takes its rate at run time and its mask from
-the caller or from a generator the caller gives (:class:`Dropout`);
+Training (the ResNet family; the others' train-mode forward comes with
+ROADMAP A13b): the head's dropout takes its rate at run time and its mask
+from the caller or from a generator the caller gives (:class:`Dropout`);
 parameters outside the trainable stages get ``requires_grad=False``
 (:func:`resolve_trainable_stages`); the losses are the JAX package's
 class-weighted cross-entropies (:func:`weighted_cross_entropy`,
@@ -25,23 +31,19 @@ import torch.nn.functional as F
 
 from irp_tpu_torch._kernels import resolve_device
 from irp_tpu_torch.config import FUSED_MODES, ModelConfig
-from irp_tpu_torch.models.resnet import (BOTTLENECK_DEPTHS, STAGE_NAMES,
-                                         ResNet, at_least_f32, lecun_normal_)
+from irp_tpu_torch.models.convnext import (STAGE_COUNT as _CNX_STAGES,
+                                           ConvNeXt,
+                                           convnext_default_trainable_stages)
+from irp_tpu_torch.models.efficientnet import (
+    STAGE_COUNT as _EFF_STAGES, EfficientNet,
+    efficientnet_default_trainable_stages)
+from irp_tpu_torch.models.layers import Linear, at_least_f32, lecun_normal_
+from irp_tpu_torch.models.resnet import BOTTLENECK_DEPTHS, STAGE_NAMES, ResNet
+from irp_tpu_torch.models.vit import (VisionTransformer, resolve_num_heads,
+                                      vit_default_trainable_stages)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
-
-
-class Linear(nn.Linear):
-    """Dense layer computed in ``compute_dtype`` from f32 params."""
-
-    def __init__(self, fin, fout, compute_dtype=torch.bfloat16):
-        super().__init__(fin, fout)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Dropout(nn.Module):
@@ -62,14 +64,94 @@ class Dropout(nn.Module):
         return torch.where(mask, x / divisor, torch.zeros_like(x))
 
 
+_TRAIN_LATER = ("the train-mode forward of family {!r} is not ported yet "
+                "(ROADMAP.md, Queue 1, A13b: stochastic depth with its "
+                "draws as arguments, freezing, remat, fit and the training "
+                "CLIs for the other families); its eval forward serves")
+
+
 def resolve_trainable_stages(cfg: ModelConfig) -> tuple:
-    """The effective trainable-stage tuple of a config (the ResNet family
-    takes ``trainable_stages`` literally)."""
-    if cfg.family != "resnet":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1, "
-            f"A13: the other model families)")
+    """The effective trainable-stage tuple of a config.  For the other
+    families the untouched ResNet default ('layer4',) means the family's
+    last-stage recipe (ViT: the last block and the final LayerNorm;
+    EfficientNet: stage7 and the top conv; ConvNeXt: stage4 and the final
+    LayerNorm); anything else is taken literally."""
+    if tuple(cfg.trainable_stages) == ("layer4",):
+        if cfg.family == "vit":
+            return vit_default_trainable_stages(cfg.num_layers)
+        if cfg.family == "efficientnet":
+            return efficientnet_default_trainable_stages()
+        if cfg.family == "convnext":
+            return convnext_default_trainable_stages()
     return tuple(cfg.trainable_stages)
+
+
+def _vit_frozen_prefix(cfg: ModelConfig, stages: tuple) -> int:
+    """Leading encoder blocks with no trainable stage at or before them
+    ('embed' trainable: 0, the embedding sits before block 0)."""
+    if cfg.head_only:
+        return cfg.num_layers
+    if "embed" in stages:
+        return 0
+    blocks = []
+    for name in stages:
+        if name.startswith("block"):
+            idx = int(name[len("block"):])
+            if not 0 <= idx < cfg.num_layers:
+                raise ValueError(
+                    f"trainable stage {name!r} out of range for "
+                    f"num_layers={cfg.num_layers}")
+            blocks.append(idx)
+        elif name != "ln":
+            raise ValueError(
+                f"unknown ViT trainable stage {name!r} (expected "
+                f"'block<i>', 'ln', or 'embed')")
+    return min(blocks) if blocks else cfg.num_layers
+
+
+def _stage_prefix(stages: tuple, count: int, family: str,
+                  last: str) -> int:
+    """Leading 'stage<i>' stages (1..count) with no trainable stage at or
+    before them; besides 'stage<i>' and 'stem', only ``last`` is a known
+    stage name."""
+    indices = []
+    for name in stages:
+        if name.startswith("stage"):
+            idx = int(name[len("stage"):])
+            if not 1 <= idx <= count:
+                raise ValueError(
+                    f"trainable stage {name!r} out of range "
+                    f"(stage1..stage{count})")
+            indices.append(idx)
+        elif name != last:
+            raise ValueError(
+                f"unknown {family} trainable stage {name!r} (expected "
+                f"'stage<i>', 'stem', or '{last}')")
+    return min(indices) - 1 if indices else count
+
+
+def _efficientnet_freezing(cfg: ModelConfig, stages: tuple):
+    """(frozen_prefix, top_frozen) of an EfficientNet config: the leading
+    MBConv stages with no trainable stage at or before them ('stem'
+    trainable: 0), and whether the top conv is frozen."""
+    if cfg.head_only:
+        return _EFF_STAGES, True
+    top_frozen = "top" not in stages
+    if "stem" in stages:
+        return 0, top_frozen
+    return _stage_prefix(stages, _EFF_STAGES, "EfficientNet",
+                         "top"), top_frozen
+
+
+def _convnext_freezing(cfg: ModelConfig, stages: tuple) -> int:
+    """The frozen prefix of a ConvNeXt config: leading stages with no
+    trainable stage at or before them ('stem' trainable: 0).  The final
+    LayerNorm ('ln') is after the pool and never moves it."""
+    if cfg.head_only:
+        return _CNX_STAGES
+    if "stem" in stages:
+        return 0
+    return _stage_prefix(stages, _CNX_STAGES, "ConvNeXt", "ln")
 
 
 def is_trainable(name: str, stages: Sequence[str]) -> bool:
@@ -114,18 +196,47 @@ def _check_fused_on(cfg: ModelConfig) -> None:
                          "config: " + "; ".join(problems))
 
 
+def _build_backbone(cfg: ModelConfig, dtype: torch.dtype) -> nn.Module:
+    """The family's backbone, with the family's freezing rules."""
+    if cfg.family == "resnet":
+        if cfg.fused_frozen_blocks == "on":
+            _check_fused_on(cfg)
+        return ResNet(depth=cfg.depth, groups=cfg.groups,
+                      width_per_group=cfg.width_per_group, dtype=dtype,
+                      frozen_prefix=_frozen_prefix(cfg),
+                      bn_stats_mode=cfg.bn_stats_mode,
+                      precision=cfg.precision,
+                      fused_frozen_blocks=cfg.fused_frozen_blocks,
+                      remat_blocks=cfg.remat_trainable_blocks)
+    if cfg.fused_frozen_blocks == "on":
+        raise ValueError(f"fused_frozen_blocks='on' is a ResNet bottleneck "
+                         f"kernel; not available for family={cfg.family!r}")
+    # the family's stage names are checked as the JAX package checks them
+    # (ValueError); what they freeze matters to training only (A13b)
+    freezing = {"vit": _vit_frozen_prefix,
+                "efficientnet": _efficientnet_freezing,
+                "convnext": _convnext_freezing}[cfg.family]
+    freezing(cfg, resolve_trainable_stages(cfg))
+    if cfg.family == "vit":
+        return VisionTransformer(
+            patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
+            num_layers=cfg.num_layers, num_heads=resolve_num_heads(cfg),
+            mlp_dim=cfg.mlp_dim, image_size=cfg.image_size, dtype=dtype)
+    if cfg.family == "efficientnet":
+        return EfficientNet(width_mult=cfg.width_mult,
+                            depth_mult=cfg.depth_mult, dtype=dtype)
+    return ConvNeXt(dims=tuple(cfg.convnext_dims),
+                    depths=tuple(cfg.convnext_depths), dtype=dtype)
+
+
 class Classifier(nn.Module):
-    """ResNet backbone + 2-layer MLP head; input NCHW (channels_last),
-    output f32 logits."""
+    """Backbone (ResNet, ViT, EfficientNet or ConvNeXt) + 2-layer MLP head;
+    input NCHW (channels_last), output f32 logits."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = config
-        if cfg.family in ("vit", "efficientnet", "convnext"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                f"Queue 1, A13: the other model families)")
-        if cfg.family != "resnet":
+        if cfg.family not in ("resnet", "vit", "efficientnet", "convnext"):
             raise ValueError(f"unknown model family {cfg.family!r}")
         if cfg.fused_frozen_blocks not in FUSED_MODES:
             raise ValueError(f"fused_frozen_blocks must be one of "
@@ -135,27 +246,19 @@ class Classifier(nn.Module):
                              f"{cfg.compute_dtype!r}")
         if cfg.precision not in ("default", "highest"):
             raise ValueError(f"unsupported precision {cfg.precision!r}")
-        if cfg.fused_frozen_blocks == "on":
-            _check_fused_on(cfg)
         self.config = cfg
         dtype = _DTYPES[cfg.compute_dtype]
-        self.backbone = ResNet(depth=cfg.depth, groups=cfg.groups,
-                               width_per_group=cfg.width_per_group,
-                               dtype=dtype,
-                               frozen_prefix=_frozen_prefix(cfg),
-                               bn_stats_mode=cfg.bn_stats_mode,
-                               precision=cfg.precision,
-                               fused_frozen_blocks=cfg.fused_frozen_blocks,
-                               remat_blocks=cfg.remat_trainable_blocks)
+        self.backbone = _build_backbone(cfg, dtype)
         self.classifier = nn.Sequential(
             Dropout(),
             Linear(self.backbone.num_features, cfg.hidden_dim, dtype),
             nn.ReLU(),
             Dropout(),
             Linear(cfg.hidden_dim, cfg.num_classes, dtype))
-        stages = () if cfg.head_only else resolve_trainable_stages(cfg)
-        for name, p in self.named_parameters():
-            p.requires_grad_(is_trainable(name, stages))
+        if cfg.family == "resnet":  # the others train with A13b
+            stages = () if cfg.head_only else resolve_trainable_stages(cfg)
+            for name, p in self.named_parameters():
+                p.requires_grad_(is_trainable(name, stages))
 
     def precision_scope(self, x):
         """The context a forward on ``x`` runs in, and its backward must
@@ -175,7 +278,11 @@ class Classifier(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """f32 logits.  In train mode the head's two dropouts run at
         ``dropout_rate`` (the config's when None), with ``dropout_masks``
-        (a pair of bool tensors) or masks drawn from ``generator``."""
+        (a pair of bool tensors) or masks drawn from ``generator``; the
+        train mode of the families other than ResNet raises (A13b)."""
+        if self.training and self.config.family != "resnet":
+            raise NotImplementedError(_TRAIN_LATER.format(
+                self.config.family))
         with self.precision_scope(x):
             return self.head(self.backbone(x), dropout_rate, dropout_masks,
                              generator)
@@ -197,43 +304,64 @@ class Classifier(nn.Module):
             y = drop2(y, rate, masks[1], generator)
         return at_least_f32(dense2(y))
 
+    def head_eval(self, feats):
+        """The eval-form head (no dropout): (B, C) -> f32 (B, classes)."""
+        dense1, relu, dense2 = (self.classifier[1], self.classifier[2],
+                                self.classifier[4])
+        return at_least_f32(dense2(relu(dense1(feats))))
+
+    @contextlib.contextmanager
+    def _eval_form(self, x):
+        """Eval mode (inference BN) and the precision scope for one
+        surface call, restoring train mode after."""
+        training = self.training
+        if training:
+            self.eval()
+        try:
+            with self.precision_scope(x):
+                yield
+        finally:
+            if training:
+                self.train()
+
     def features(self, x):
         """Headless forward in eval form (inference BN), f32 (B, F): the
         outlier-detection feature extractor's forward."""
-        training = self.training
-        if training:
-            self.eval()
-        try:
-            with self.precision_scope(x):
-                return at_least_f32(self.backbone(x))
-        finally:
-            if training:
-                self.train()
+        with self._eval_form(x):
+            return at_least_f32(self.backbone(x))
 
     def spatial_features(self, x):
-        """The pre-pool map of the last stage (B, C, h, w), in eval form
-        (inference BN): the Grad-CAM surface (``explain.py``)."""
-        training = self.training
-        if training:
-            self.eval()
-        try:
-            with self.precision_scope(x):
-                return self.backbone.forward_spatial(x)
-        finally:
-            if training:
-                self.train()
+        """The pre-pool map (B, C, h, w) in eval form: the Grad-CAM
+        surface of the ResNet, EfficientNet and ConvNeXt families
+        (``explain.py``).  For ViT, the post-LayerNorm patch-token grid
+        (B, E, gh, gw); its Grad-CAM reads :meth:`vit_tokens` instead."""
+        with self._eval_form(x):
+            return self.backbone.forward_spatial(x)
 
     def head_from_spatial(self, spatial):
         """A pre-pool map (B, C, h, w) -> eval-form f32 logits: the pool
-        and the head without dropout, so that
-        ``head_from_spatial(spatial_features(x))`` equals ``forward(x)``
-        in eval mode, bit for bit."""
-        dense1, relu, dense2 = (self.classifier[1], self.classifier[2],
-                                self.classifier[4])
-        return at_least_f32(dense2(relu(dense1(self.backbone.pool(spatial)))))
+        (for ConvNeXt, the pool and then its final LayerNorm) and the head
+        without dropout, so that ``head_from_spatial(spatial_features(x))``
+        equals ``forward(x)`` in eval mode, bit for bit."""
+        return self.head_eval(self.backbone.pool(spatial))
+
+    def vit_tokens(self, x):
+        """ViT's Grad-CAM surface: the tokens (B, S, E) entering the last
+        encoder block, in eval form."""
+        with self._eval_form(x):
+            return self.backbone.prefix_tokens(x)
+
+    def vit_logits_from_tokens(self, tokens):
+        """The last block, the final LayerNorm, the CLS pick and the
+        eval-form head: (B, S, E) -> f32 (B, K);
+        ``vit_logits_from_tokens(vit_tokens(x))`` equals ``forward(x)`` in
+        eval mode, bit for bit."""
+        with self._eval_form(tokens):
+            return self.head_eval(self.backbone.suffix_feature(tokens))
 
     def init_weights(self, generator: torch.Generator | None = None) -> None:
-        """flax's initializers: lecun_normal kernels, zero Dense biases."""
+        """flax's initializers: lecun_normal kernels, zero Dense biases
+        (each family's ``init_weights`` for its backbone)."""
         self.backbone.init_weights(generator)
         for mod in self.classifier:
             if isinstance(mod, Linear):

@@ -1,22 +1,45 @@
 """Weights between the JAX package's variable tree and the port's
-state_dict (ResNet family).
+state_dict, for the four model families.
 
 The JAX package keeps ``{'params', 'batch_stats'}`` trees in flax layout
 (``backbone/layer1_block0/conv1/kernel`` HWIO, Dense kernels (in, out),
-BN ``scale/bias`` + ``mean/var``); its ``.npz`` artifacts store that tree.
-The port's modules follow torchvision names under ``backbone.`` and a
-``classifier.{1,4}`` head.  Layout rules:
+BN ``scale/bias`` + ``mean/var``, LayerNorm ``scale/bias``); its ``.npz``
+artifacts store that tree.  The port's modules follow torchvision names
+under ``backbone.`` and a ``classifier.{1,4}`` head.  Layout rules:
 
 - conv kernel HWIO <-> weight OIHW (transpose 3, 2, 0, 1);
 - Dense kernel (in, out) <-> Linear weight (out, in);
 - BN params.scale/bias <-> weight/bias, batch_stats.mean/var <->
-  running_mean/running_var.
+  running_mean/running_var; LayerNorm scale/bias <-> weight/bias.
+
+Per family (the JAX package's ``models/convert.py`` maps):
+
+- ViT: ``block{i}/attn_q|attn_k|attn_v`` <-> rows of the packed
+  ``encoder.layers.encoder_layer_{i}.self_attention.in_proj_*``
+  (q, k, v in that order); ``ln1/ln2`` <-> ``ln_1/ln_2``;
+  ``mlp_dense1/2`` <-> ``mlp.0/3``; ``attn_out`` <-> ``out_proj``.
+- EfficientNet: ``stem_*``/``top_*`` <-> ``features.0``/``features.8``;
+  ``stage{s}_block{j}/{expand,dw,project}_{conv,bn}`` and ``se_fc1/2``
+  <-> ``features.{s}.{j}.block.{k}`` by the fixed role table (stage 1
+  has no expand conv).
+- ConvNeXt: ``stem_conv/stem_ln`` <-> ``features.0.{0,1}``;
+  ``stage{s}_block{j}`` <-> ``features.{2s-1}.{j}`` (``dw_conv``
+  block.0, ``ln`` block.2, ``mlp_dense1/2`` block.3/5, ``layer_scale``
+  (C,) <-> (C, 1, 1)); ``stage{s}_downsample_ln/_conv`` <->
+  ``features.{2s-2}.{0,1}``; the final ``ln`` <-> ``ln`` (torchvision's
+  ``classifier.0`` is read too).
+
+A torchvision-layout ``.pth`` is recognized by its keys (ViT by
+``class_token``/``encoder.``, ConvNeXt by ``layer_scale``, EfficientNet by
+``features.<s>.<j>.block.``), and other ``features.`` families are
+refused by name, as in the JAX package.  torchvision's own heads
+(``heads.*``, a single-Linear ``classifier.*``) are skipped.
 
 :func:`load_torch_checkpoint` and :func:`merge_pretrained` bring a
-torchvision-layout ``.pth`` (a pretrained backbone) into a port model;
-:func:`optax_state_to_optimizer_state` turns the JAX package's optimizer
-state into the port's (``train/state.py::Optimizer.state_dict``), so both
-packages can start from one mid-training state.
+torchvision-layout ResNet ``.pth`` (a pretrained backbone) into a port
+model; :func:`optax_state_to_optimizer_state` turns the JAX package's
+optimizer state into the port's (``train/state.py::Optimizer.state_dict``),
+so both packages can start from one mid-training state.
 """
 
 from __future__ import annotations
@@ -36,24 +59,51 @@ _BN_FIELDS = (("weight", "params", "scale"), ("bias", "params", "bias"),
 
 def jax_variables_to_state_dict(variables: Mapping,
                                 depth: int = 50) -> Dict[str, torch.Tensor]:
-    """``{'params', 'batch_stats'}`` numpy tree -> the port's state_dict
-    (f32 CPU tensors, keys ``backbone.*`` and ``classifier.{1,4}.*``)."""
+    """``{'params', 'batch_stats'}`` numpy tree of any family -> the
+    port's state_dict (f32 CPU tensors, keys ``backbone.*`` and
+    ``classifier.{1,4}.*``).  The family is read off the tree (ViT by
+    ``class_token``, ConvNeXt by ``stem_ln``, EfficientNet by
+    ``stem_conv``); ``depth`` is the ResNet's."""
+    backbone = variables["params"]["backbone"]
+    if "class_token" in backbone:
+        sd = _vit_to_state_dict(variables)
+    elif "stem_ln" in backbone:
+        sd = _convnext_to_state_dict(variables)
+    elif "stem_conv" in backbone:
+        sd = _efficientnet_to_state_dict(variables)
+    else:
+        sd = _resnet_to_state_dict(variables, depth)
+    _put_head(sd, variables["params"])
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in sd.items()}
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def _put_head(sd: Dict, params: Mapping) -> None:
+    for idx, dense in (("1", "head_dense1"), ("4", "head_dense2")):
+        sd[f"classifier.{idx}.weight"] = _f32(params[dense]["kernel"]).T
+        sd[f"classifier.{idx}.bias"] = _f32(params[dense]["bias"])
+
+
+def _conv_weight(kernel) -> np.ndarray:
+    return _f32(kernel).transpose(3, 2, 0, 1)
+
+
+def _resnet_to_state_dict(variables: Mapping, depth: int) -> Dict:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
 
     def put_conv(tkey, kernel):
-        sd[tkey] = np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)
-
-    def put_bn(tprefix, pnode, snode):
-        for tname, coll, fname in _BN_FIELDS:
-            node = pnode if coll == "params" else snode
-            sd[f"{tprefix}.{tname}"] = np.asarray(node[fname], np.float32)
+        sd[tkey] = _conv_weight(kernel)
 
     b = params["backbone"]
     bs = stats.get("backbone", {})
     put_conv("backbone.conv1.weight", b["conv1"]["kernel"])
-    put_bn("backbone.bn1", b["bn1"], bs["bn1"])
+    _put_bn(sd, "backbone.bn1", b["bn1"], bs["bn1"])
     for i, n_blocks in enumerate(STAGE_SIZES[depth]):
         for j in range(n_blocks):
             fkey = f"layer{i + 1}_block{j}"
@@ -63,19 +113,126 @@ def jax_variables_to_state_dict(variables: Mapping,
                 put_conv(f"{tbase}.{conv_name}.weight",
                          node[conv_name]["kernel"])
                 bn_name = "bn" + conv_name[-1]
-                put_bn(f"{tbase}.{bn_name}", node[bn_name], snode[bn_name])
+                _put_bn(sd, f"{tbase}.{bn_name}", node[bn_name],
+                        snode[bn_name])
             if "downsample_conv" in node:
                 put_conv(f"{tbase}.downsample.0.weight",
                          node["downsample_conv"]["kernel"])
-                put_bn(f"{tbase}.downsample.1", node["downsample_bn"],
-                       snode["downsample_bn"])
-    for idx, dense in (("1", "head_dense1"), ("4", "head_dense2")):
-        sd[f"classifier.{idx}.weight"] = np.asarray(
-            params[dense]["kernel"], np.float32).T
-        sd[f"classifier.{idx}.bias"] = np.asarray(params[dense]["bias"],
-                                                  np.float32)
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in sd.items()}
+                _put_bn(sd, f"{tbase}.downsample.1", node["downsample_bn"],
+                        snode["downsample_bn"])
+    return sd
+
+
+def _put_bn(sd: Dict, tprefix: str, pnode: Mapping,
+            snode: Mapping) -> None:
+    for tname, coll, fname in _BN_FIELDS:
+        node = pnode if coll == "params" else snode
+        sd[f"{tprefix}.{tname}"] = _f32(node[fname])
+
+
+def _put_ln(sd: Dict, tprefix: str, node: Mapping) -> None:
+    sd[f"{tprefix}.weight"] = _f32(node["scale"])
+    sd[f"{tprefix}.bias"] = _f32(node["bias"])
+
+
+def _put_dense(sd: Dict, tprefix: str, node: Mapping) -> None:
+    sd[f"{tprefix}.weight"] = _f32(node["kernel"]).T
+    sd[f"{tprefix}.bias"] = _f32(node["bias"])
+
+
+def _vit_to_state_dict(variables: Mapping) -> Dict:
+    b = variables["params"]["backbone"]
+    sd: Dict[str, np.ndarray] = {
+        "backbone.class_token": _f32(b["class_token"]),
+        "backbone.conv_proj.weight": _conv_weight(b["conv_proj"]["kernel"]),
+        "backbone.conv_proj.bias": _f32(b["conv_proj"]["bias"]),
+        "backbone.encoder.pos_embedding": _f32(b["pos_embedding"])}
+    for name in (k for k in b if re.fullmatch(r"block\d+", k)):
+        node = b[name]
+        t = f"backbone.encoder.layers.encoder_layer_{name[len('block'):]}"
+        _put_ln(sd, f"{t}.ln_1", node["ln1"])
+        _put_ln(sd, f"{t}.ln_2", node["ln2"])
+        qkv = ("attn_q", "attn_k", "attn_v")
+        sd[f"{t}.self_attention.in_proj_weight"] = np.concatenate(
+            [_f32(node[p]["kernel"]).T for p in qkv], 0)
+        sd[f"{t}.self_attention.in_proj_bias"] = np.concatenate(
+            [_f32(node[p]["bias"]) for p in qkv], 0)
+        _put_dense(sd, f"{t}.self_attention.out_proj", node["attn_out"])
+        _put_dense(sd, f"{t}.mlp.0", node["mlp_dense1"])
+        _put_dense(sd, f"{t}.mlp.3", node["mlp_dense2"])
+    _put_ln(sd, "backbone.encoder.ln", b["ln"])
+    return sd
+
+
+# torchvision MBConv submodule roles by index inside ``block``: stage 1
+# (expand ratio 1) has no expand conv; every other stage does.
+_EFF_ROLES_NO_EXPAND = {"0": "dw", "1": "se", "2": "project"}
+_EFF_ROLES_EXPAND = {"0": "expand", "1": "dw", "2": "se", "3": "project"}
+
+
+def _stage_block(key: str):
+    stage, block = key.split("_block")
+    return int(stage[len("stage"):]), int(block)
+
+
+def _efficientnet_to_state_dict(variables: Mapping) -> Dict:
+    b = variables["params"]["backbone"]
+    bs = variables.get("batch_stats", {}).get("backbone", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    for name, idx in (("stem", 0), ("top", 8)):
+        sd[f"backbone.features.{idx}.0.weight"] = _conv_weight(
+            b[f"{name}_conv"]["kernel"])
+        _put_bn(sd, f"backbone.features.{idx}.1", b[f"{name}_bn"],
+                bs[f"{name}_bn"])
+    for fkey in (k for k in b if re.fullmatch(r"stage\d+_block\d+", k)):
+        s, j = _stage_block(fkey)
+        tbase = f"backbone.features.{s}.{j}.block"
+        roles = _EFF_ROLES_NO_EXPAND if s == 1 else _EFF_ROLES_EXPAND
+        idx_of = {v: k for k, v in roles.items()}
+        node, snode = b[fkey], bs[fkey]
+        for role in ("expand", "dw", "project"):
+            if f"{role}_conv" in node:
+                k = idx_of[role]
+                sd[f"{tbase}.{k}.0.weight"] = _conv_weight(
+                    node[f"{role}_conv"]["kernel"])
+                _put_bn(sd, f"{tbase}.{k}.1", node[f"{role}_bn"],
+                        snode[f"{role}_bn"])
+        for fc in ("fc1", "fc2"):
+            sd[f"{tbase}.{idx_of['se']}.{fc}.weight"] = _conv_weight(
+                node[f"se_{fc}"]["kernel"])
+            sd[f"{tbase}.{idx_of['se']}.{fc}.bias"] = _f32(
+                node[f"se_{fc}"]["bias"])
+    return sd
+
+
+def _convnext_to_state_dict(variables: Mapping) -> Dict:
+    b = variables["params"]["backbone"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_conv(tprefix, node):
+        sd[f"{tprefix}.weight"] = _conv_weight(node["kernel"])
+        sd[f"{tprefix}.bias"] = _f32(node["bias"])
+
+    put_conv("backbone.features.0.0", b["stem_conv"])
+    _put_ln(sd, "backbone.features.0.1", b["stem_ln"])
+    for fkey in (k for k in b if re.fullmatch(r"stage\d+_block\d+", k)):
+        s, j = _stage_block(fkey)
+        t = f"backbone.features.{2 * s - 1}.{j}"
+        node = b[fkey]
+        put_conv(f"{t}.block.0", node["dw_conv"])
+        _put_ln(sd, f"{t}.block.2", node["ln"])
+        _put_dense(sd, f"{t}.block.3", node["mlp_dense1"])
+        _put_dense(sd, f"{t}.block.5", node["mlp_dense2"])
+        sd[f"{t}.layer_scale"] = _f32(node["layer_scale"]).reshape(-1, 1, 1)
+    for s in range(2, 5):
+        if f"stage{s}_downsample_ln" in b:
+            _put_ln(sd, f"backbone.features.{2 * s - 2}.0",
+                    b[f"stage{s}_downsample_ln"])
+            put_conv(f"backbone.features.{2 * s - 2}.1",
+                     b[f"stage{s}_downsample_conv"])
+    _put_ln(sd, "backbone.ln", b["ln"])
+    return sd
 
 
 def _set(tree: Dict, path, value) -> None:
@@ -85,23 +242,261 @@ def _set(tree: Dict, path, value) -> None:
     node[path[-1]] = value
 
 
+def _strip(key: str) -> str:
+    return key[len("backbone."):] if key.startswith("backbone.") else key
+
+
+def _is_vit_state_dict(state_dict) -> bool:
+    return any(_strip(k) == "class_token" or _strip(k).startswith("encoder.")
+               for k in state_dict)
+
+
+def _is_convnext_state_dict(state_dict) -> bool:
+    # layer_scale is ConvNeXt's alone among torchvision families (checked
+    # before EfficientNet: ConvNeXt's blocks also sit under features.)
+    return any(_strip(k).endswith("layer_scale") for k in state_dict)
+
+
+def _is_efficientnet_state_dict(state_dict) -> bool:
+    # the MBConv layout features.<s>.<j>.block.<k>., not just features.
+    # (VGG, DenseNet and MobileNet have that too)
+    return any(re.match(r"^features\.\d+\.\d+\.block\.", _strip(k))
+               for k in state_dict)
+
+
 def state_dict_to_jax_variables(state_dict: Mapping) -> Dict[str, Dict]:
-    """Inverse of :func:`jax_variables_to_state_dict`: a ResNet state_dict
-    (the port's, the JAX package's ``export_torch_pth`` output, or the
-    reference stack's AnimalClassifier; ``backbone.`` prefix optional) ->
-    ``{'params', 'batch_stats'}`` numpy tree, as the ``.npz`` artifacts
-    store it.  ``num_batches_tracked`` and a torchvision ``fc.*`` are
-    skipped."""
+    """Inverse of :func:`jax_variables_to_state_dict`: a state_dict of any
+    family (the port's, the JAX package's ``export_torch_pth`` output, the
+    reference stack's AnimalClassifier or a torchvision checkpoint;
+    ``backbone.`` prefix optional) -> ``{'params', 'batch_stats'}`` numpy
+    tree, as the ``.npz`` artifacts store it.  The family is read off the
+    keys; ``num_batches_tracked`` and torchvision's own heads (``fc.*``,
+    ``heads.*``, a single-Linear ``classifier``) are skipped.  A
+    ``features.`` state_dict of another torchvision family raises
+    ``ValueError``."""
+    if _is_vit_state_dict(state_dict):
+        return _vit_from_state_dict(state_dict)
+    if _is_convnext_state_dict(state_dict):
+        return _convnext_from_state_dict(state_dict)
+    if _is_efficientnet_state_dict(state_dict):
+        return _efficientnet_from_state_dict(state_dict)
+    if any(_strip(k).startswith("features.") for k in state_dict):
+        raise ValueError(
+            "state_dict has 'features.'-prefixed keys but neither the "
+            "EfficientNet MBConv layout ('features.<s>.<j>.block.<k>.') "
+            "nor ConvNeXt layer_scale keys: this looks like an "
+            "unsupported torchvision family (e.g. VGG, DenseNet, "
+            "MobileNet). Supported families: ResNet/ResNeXt/Wide-ResNet "
+            "(conv1/layer*), ViT (class_token/encoder.*), EfficientNet "
+            "(features.*.*.block.*), ConvNeXt (features.* + layer_scale)")
+    return _resnet_from_state_dict(state_dict)
+
+
+def _arr(value) -> np.ndarray:
+    """A float32 numpy copy (the tree must not alias a module's
+    tensors)."""
+    return np.array(value.detach().cpu().float().numpy()
+                    if isinstance(value, torch.Tensor) else value,
+                    np.float32)
+
+
+def _take_head(key: str, arr: np.ndarray, params: Dict) -> bool:
+    """Put a ``classifier.{1,4}`` head tensor into ``params``; whether
+    ``key`` was one."""
+    m = re.fullmatch(r"classifier\.([14])\.(weight|bias)", key)
+    if not m:
+        return False
+    dense = "head_dense1" if m.group(1) == "1" else "head_dense2"
+    if m.group(2) == "weight":
+        _set(params, (dense, "kernel"), arr.T.copy())
+    else:
+        _set(params, (dense, "bias"), arr)
+    return True
+
+
+def _has_mlp_head(state_dict) -> bool:
+    return any(_strip(k).startswith("classifier.4.") for k in state_dict)
+
+
+def _ln_leaf(field: str) -> str:
+    return "scale" if field == "weight" else "bias"
+
+
+def _conv_kernel(arr: np.ndarray) -> np.ndarray:
+    return arr.transpose(2, 3, 1, 0).copy()
+
+
+def _vit_from_state_dict(state_dict) -> Dict[str, Dict]:
+    params: Dict = {}
+    b: Dict = {}
+    for key, value in state_dict.items():
+        key = _strip(key)
+        if key.startswith("heads."):
+            continue  # torchvision's own classification head
+        arr = _arr(value)
+        if _take_head(key, arr, params):
+            continue
+        if key == "class_token":
+            b["class_token"] = arr
+        elif key == "encoder.pos_embedding":
+            b["pos_embedding"] = arr
+        elif key == "conv_proj.weight":
+            _set(b, ("conv_proj", "kernel"), _conv_kernel(arr))
+        elif key == "conv_proj.bias":
+            _set(b, ("conv_proj", "bias"), arr)
+        elif key in ("encoder.ln.weight", "encoder.ln.bias"):
+            _set(b, ("ln", _ln_leaf(key.split(".")[-1])), arr)
+        else:
+            m = re.fullmatch(r"encoder\.layers\.encoder_layer_(\d+)\.(.+)",
+                             key)
+            if not m:
+                raise KeyError(f"unrecognized ViT torch key: {key}")
+            block, rest = f"block{m.group(1)}", m.group(2)
+            mod, _, field = rest.rpartition(".")
+            if mod in ("ln_1", "ln_2"):
+                _set(b, (block, mod.replace("_", ""), _ln_leaf(field)), arr)
+            elif rest.startswith("self_attention.in_proj_"):
+                e = arr.shape[0] // 3
+                leaf = "kernel" if rest.endswith("weight") else "bias"
+                for j, proj in enumerate(("attn_q", "attn_k", "attn_v")):
+                    part = arr[j * e:(j + 1) * e]
+                    _set(b, (block, proj, leaf),
+                         part.T.copy() if leaf == "kernel" else part.copy())
+            elif mod in ("self_attention.out_proj", "mlp.0", "mlp.3"):
+                dense = {"self_attention.out_proj": "attn_out",
+                         "mlp.0": "mlp_dense1", "mlp.3": "mlp_dense2"}[mod]
+                _set(b, (block, dense,
+                         "kernel" if field == "weight" else "bias"),
+                     arr.T.copy() if field == "weight" else arr)
+            else:
+                raise KeyError(f"unrecognized ViT torch key: {key}")
+    params["backbone"] = b
+    return {"params": params, "batch_stats": {}}
+
+
+def _efficientnet_from_state_dict(state_dict) -> Dict[str, Dict]:
+    params: Dict = {}
+    b: Dict = {}
+    bs: Dict = {}
+    bn_map = {t: (coll, f) for t, coll, f in _BN_FIELDS}
+    mlp_head = _has_mlp_head(state_dict)
+
+    def put(path_conv, path_bn, sub, field, arr):
+        if sub == "0":
+            _set(b, path_conv + ("kernel",), _conv_kernel(arr))
+        else:
+            coll, leaf = bn_map[field]
+            _set(b if coll == "params" else bs, path_bn + (leaf,), arr)
+
+    for key, value in state_dict.items():
+        key = _strip(key)
+        if key.endswith("num_batches_tracked"):
+            continue
+        arr = _arr(value)
+        if key.startswith("classifier."):
+            if mlp_head:
+                _take_head(key, arr, params)
+            continue  # torchvision's own 1000-way head is not ours
+        m = re.fullmatch(r"features\.(\d+)\.(.+)", key)
+        if not m:
+            raise KeyError(f"unrecognized EfficientNet torch key: {key}")
+        fidx, rest = int(m.group(1)), m.group(2)
+        if fidx in (0, 8):  # stem / top Conv2dNormActivation
+            name = "stem" if fidx == 0 else "top"
+            sub, field = rest.split(".", 1)
+            put((f"{name}_conv",), (f"{name}_bn",), sub, field, arr)
+            continue
+        m = re.fullmatch(r"(\d+)\.block\.(\d+)\.(.+)", rest)
+        roles = _EFF_ROLES_NO_EXPAND if fidx == 1 else _EFF_ROLES_EXPAND
+        role = roles.get(m.group(2)) if m else None
+        if role is None:
+            raise KeyError(f"unrecognized EfficientNet torch key: {key}")
+        block = f"stage{fidx}_block{m.group(1)}"
+        sub, field = m.group(3).split(".", 1)
+        if role == "se":
+            _set(b, (block, f"se_{sub}", "kernel" if field == "weight"
+                     else "bias"),
+                 _conv_kernel(arr) if field == "weight" else arr)
+        else:
+            put((block, f"{role}_conv"), (block, f"{role}_bn"), sub, field,
+                arr)
+    params["backbone"] = b
+    return {"params": params, "batch_stats": {"backbone": bs}}
+
+
+def _convnext_from_state_dict(state_dict) -> Dict[str, Dict]:
+    params: Dict = {}
+    b: Dict = {}
+    mlp_head = _has_mlp_head(state_dict)
+
+    def put_conv(path, field, arr):
+        _set(b, path + ("kernel" if field == "weight" else "bias",),
+             _conv_kernel(arr) if field == "weight" else arr)
+
+    for key, value in state_dict.items():
+        key = _strip(key)
+        arr = _arr(value)
+        if key in ("ln.weight", "ln.bias"):  # the port's and irp_tpu's
+            _set(b, ("ln", _ln_leaf(key.split(".")[1])), arr)
+            continue
+        if key.startswith("classifier."):
+            m = re.fullmatch(r"classifier\.(\d+)\.(weight|bias)", key)
+            if m is None:
+                raise KeyError(f"unrecognized ConvNeXt torch key: {key}")
+            if m.group(1) == "0":  # torchvision's post-pool LayerNorm
+                _set(b, ("ln", _ln_leaf(m.group(2))), arr)
+            elif mlp_head:
+                _take_head(key, arr, params)
+            continue  # else torchvision's own classifier.2 Linear
+        m = re.fullmatch(r"features\.(\d+)\.(.+)", key)
+        if not m:
+            raise KeyError(f"unrecognized ConvNeXt torch key: {key}")
+        fidx, rest = int(m.group(1)), m.group(2)
+        if fidx == 0:  # stem conv + LayerNorm
+            sub, field = rest.split(".", 1)
+            if sub == "0":
+                put_conv(("stem_conv",), field, arr)
+            else:
+                _set(b, ("stem_ln", _ln_leaf(field)), arr)
+        elif fidx % 2 == 1:  # CNBlock stages
+            m2 = re.fullmatch(
+                r"(\d+)\.(layer_scale|block\.(\d)\.(weight|bias))", rest)
+            if m2 is None:
+                raise KeyError(f"unrecognized ConvNeXt torch key: {key}")
+            block = f"stage{(fidx + 1) // 2}_block{m2.group(1)}"
+            k, field = m2.group(3), m2.group(4)
+            if m2.group(2) == "layer_scale":
+                _set(b, (block, "layer_scale"), arr.reshape(-1))
+            elif k == "0":
+                put_conv((block, "dw_conv"), field, arr)
+            elif k == "2":
+                _set(b, (block, "ln", _ln_leaf(field)), arr)
+            elif k in ("3", "5"):
+                dense = "mlp_dense1" if k == "3" else "mlp_dense2"
+                _set(b, (block, dense, "kernel" if field == "weight"
+                         else "bias"),
+                     arr.T.copy() if field == "weight" else arr)
+            else:
+                raise KeyError(f"unrecognized ConvNeXt torch key: {key}")
+        else:  # 2/4/6: LayerNorm + 2x2/2 conv into stage fidx // 2 + 1
+            s = fidx // 2 + 1
+            sub, field = rest.split(".", 1)
+            if sub == "0":
+                _set(b, (f"stage{s}_downsample_ln", _ln_leaf(field)), arr)
+            else:
+                put_conv((f"stage{s}_downsample_conv",), field, arr)
+    params["backbone"] = b
+    return {"params": params, "batch_stats": {}}
+
+
+def _resnet_from_state_dict(state_dict) -> Dict[str, Dict]:
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     bn_map = {t: (coll, f) for t, coll, f in _BN_FIELDS}
     for key, value in state_dict.items():
-        key = key[len("backbone."):] if key.startswith("backbone.") else key
+        key = _strip(key)
         if key.startswith("fc.") or key.endswith("num_batches_tracked"):
             continue
-        # a copy: the tree must not alias the module's tensors
-        arr = np.array(value.detach().cpu().float().numpy()
-                       if isinstance(value, torch.Tensor) else value,
-                       np.float32)
+        arr = _arr(value)
         m = re.fullmatch(r"classifier\.(\d)\.(weight|bias)", key)
         if m:
             dense = {"1": "head_dense1", "4": "head_dense2"}.get(m.group(1))

@@ -1,0 +1,139 @@
+"""ConvNeXt Tiny-Large (the JAX package's ``models/convnext.py``), eval
+form.
+
+torchvision's ``convnext`` architecture (a 4x4/4 patchify stem with
+LayerNorm; four stages of CNBlocks, 7x7 depthwise conv -> LayerNorm ->
+Linear 4x -> exact GELU -> Linear -> per-channel ``layer_scale`` ->
+residual; LayerNorm + 2x2/2 conv downsamples between stages; a LayerNorm
+on the pooled features) under torchvision's module names:
+
+- ``features.0.{0,1}``: stem conv / LayerNorm;
+- ``features.{2s-1}.{j}`` (s in 1..4): CNBlock, ``block.0`` (depthwise),
+  ``block.2`` (LayerNorm), ``block.3`` / ``block.5`` (Linear), and
+  ``layer_scale`` of shape (C, 1, 1);
+- ``features.{2s-2}.{0,1}`` (s in 2..4): the LayerNorm / conv downsample
+  into stage s;
+- ``ln``: the post-pool LayerNorm (torchvision's ``classifier.0``; the
+  port's head owns ``classifier.*``, so it sits in the backbone, as in
+  the JAX package's ``.pth`` exports).
+
+The maps are held in channels_last memory, so each LayerNorm and Linear
+runs on the NHWC view with no copy (torchvision's Permute pair is a
+view here).  Only the eval forward is here: stochastic depth, whose
+per-sample draws must be arguments, comes with the train-mode forward
+(A13b).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from irp_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear,
+                                         flax_init_, global_pool, nchw, nhwc)
+
+STAGE_COUNT = 4
+
+# torchvision.models.convnext block settings: per-stage channel dims and
+# block depths, and each variant's stochastic_depth_prob default.
+CONVNEXT_VARIANTS = {
+    "tiny": dict(convnext_dims=(96, 192, 384, 768),
+                 convnext_depths=(3, 3, 9, 3), stochastic_depth=0.1),
+    "small": dict(convnext_dims=(96, 192, 384, 768),
+                  convnext_depths=(3, 3, 27, 3), stochastic_depth=0.4),
+    "base": dict(convnext_dims=(128, 256, 512, 1024),
+                 convnext_depths=(3, 3, 27, 3), stochastic_depth=0.5),
+    "large": dict(convnext_dims=(192, 384, 768, 1536),
+                  convnext_depths=(3, 3, 27, 3), stochastic_depth=0.5),
+}
+
+
+def convnext_model_config(variant: str = "tiny", **overrides):
+    """ModelConfig for a named torchvision ConvNeXt size
+    (family='convnext'); ``overrides`` take precedence."""
+    from irp_tpu_torch.config import ModelConfig
+
+    if variant not in CONVNEXT_VARIANTS:
+        raise ValueError(f"unknown ConvNeXt variant {variant!r} "
+                         f"(one of {sorted(CONVNEXT_VARIANTS)})")
+    return ModelConfig(family="convnext",
+                       **{**CONVNEXT_VARIANTS[variant], **overrides})
+
+
+def convnext_default_trainable_stages() -> tuple:
+    """The ConvNeXt analog of freeze-all-but-layer4: the last stage and
+    the final LayerNorm."""
+    return ("stage4", "ln")
+
+
+class LayerNorm2d(LayerNorm):
+    """LayerNorm over the channels of an NCHW map, on its NHWC view."""
+
+    def forward(self, x):
+        return nchw(super().forward(nhwc(x)))
+
+
+class CNBlock(nn.Module):
+    """dw 7x7 -> LN -> Linear 4x -> GELU -> Linear -> layer_scale ->
+    residual."""
+
+    def __init__(self, dim, dtype):
+        super().__init__()
+        # indices 1 and 6 are torchvision's Permutes, 4 its GELU
+        self.block = nn.Sequential(
+            Conv2d(dim, dim, 7, 1, 3, groups=dim, bias=True,
+                   compute_dtype=dtype),
+            nn.Identity(), LayerNorm(dim, 1e-6, dtype),
+            Linear(dim, 4 * dim, dtype), nn.GELU(),
+            Linear(4 * dim, dim, dtype))
+        self.layer_scale = nn.Parameter(torch.full((dim, 1, 1), 1e-6))
+
+    def forward(self, x):
+        dw, _, ln, fc1, gelu, fc2 = self.block
+        y = fc2(gelu(fc1(ln(nhwc(dw(x))))))
+        y = y * self.layer_scale.reshape(-1).to(y.dtype)
+        return x + nchw(y)
+
+
+class ConvNeXt(nn.Module):
+    """Headless ConvNeXt returning pooled, LayerNormed features (B, C);
+    input NCHW."""
+
+    def __init__(self, dims=(96, 192, 384, 768), depths=(3, 3, 9, 3),
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.num_features = dims[-1]
+        features = [nn.Sequential(
+            Conv2d(3, dims[0], 4, 4, bias=True, compute_dtype=dtype),
+            LayerNorm2d(dims[0], 1e-6, dtype))]
+        for i, (dim, depth) in enumerate(zip(dims, depths)):
+            if i > 0:
+                features.append(nn.Sequential(
+                    LayerNorm2d(dims[i - 1], 1e-6, dtype),
+                    Conv2d(dims[i - 1], dim, 2, 2, bias=True,
+                           compute_dtype=dtype)))
+            features.append(nn.Sequential(*[CNBlock(dim, dtype)
+                                            for _ in range(depth)]))
+        self.features = nn.Sequential(*features)
+        self.ln = LayerNorm(dims[-1], 1e-6, dtype)
+
+    def init_weights(self, generator=None) -> None:
+        """flax's initializers; layer_scale 1e-6."""
+        flax_init_(self, generator)
+        for mod in self.modules():
+            if isinstance(mod, CNBlock):
+                with torch.no_grad():
+                    mod.layer_scale.fill_(1e-6)
+
+    def forward_spatial(self, x):
+        """The last stage's map (B, C, h, w) before the pool."""
+        return self.features(x.to(self.compute_dtype))
+
+    def pool(self, spatial):
+        """The global pool and then the final LayerNorm (that LayerNorm
+        sits after the pool): the features the head reads."""
+        return self.ln(global_pool(spatial, self.compute_dtype))
+
+    def forward(self, x):
+        return self.pool(self.forward_spatial(x))

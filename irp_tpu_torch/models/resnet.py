@@ -27,13 +27,13 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from irp_tpu_torch.models.layers import Conv2d, at_least_f32, flax_init_
 from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
                                            fused_identity_bottleneck)
 
@@ -46,41 +46,6 @@ STAGE_SIZES = {
 }
 BOTTLENECK_DEPTHS = (50, 101, 152)
 STAGE_NAMES = ("layer1", "layer2", "layer3", "layer4")
-
-
-def lecun_normal_(weight: torch.Tensor, fan_in: int,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """flax's lecun_normal: truncated normal (2 sigma) of variance
-    1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                     generator=generator)
-
-
-class Conv2d(nn.Conv2d):
-    """Bias-free conv computed in ``compute_dtype`` from f32 params."""
-
-    def __init__(self, cin, cout, kernel, stride=1, padding=0, groups=1,
-                 compute_dtype=torch.bfloat16):
-        super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         groups=groups, bias=False)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                        self.padding, 1, self.groups)
-
-    def reset_parameters_from(self, generator):
-        fan_in = self.weight[0].numel()
-        lecun_normal_(self.weight, fan_in, generator)
-
-
-def at_least_f32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in float32, or as is in float64 (the reference precision a
-    float64 ``compute_dtype`` keeps end to end)."""
-    return x if x.dtype == torch.float64 else x.float()
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -316,11 +281,7 @@ class ResNet(nn.Module):
     def init_weights(self, generator: torch.Generator | None = None) -> None:
         """flax's initializers: lecun_normal convs, BN scale 1 / bias 0,
         running mean 0 / var 1."""
-        for mod in self.modules():
-            if isinstance(mod, Conv2d):
-                mod.reset_parameters_from(generator)
-            elif isinstance(mod, BatchNorm2d):
-                mod.reset_parameters()
+        flax_init_(self, generator)
 
     def fuse_active(self, x: torch.Tensor) -> bool:
         """Whether this forward routes fusable blocks through the kernel:

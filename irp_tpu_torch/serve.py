@@ -10,7 +10,8 @@ stdlib: ``http.server.ThreadingHTTPServer`` + ``queue`` + ``threading``.
 
 Endpoints
 ---------
-- ``GET /healthz``  — liveness + model card (depth/classes/crop size).
+- ``GET /healthz``  — liveness + model card (family, ResNet depth,
+  classes, crop size).
 - ``GET /stats``    — request/batch counters, mean batch fill, latency
   percentiles (p50/p90/p99 over the last 1024 requests).
 - ``GET /metrics``  — the same counters in Prometheus text format.
@@ -346,7 +347,11 @@ class _Handler(BaseHTTPRequestHandler):
                 "generation": self.server.generation,
                 "weights": self.server.weights_path,
                 "device": str(self.server.batcher.predictor.device),
-                "model": {"family": cfg.family, "depth": cfg.depth,
+                # depth is a ResNet field: another family's would be the
+                # dataclass default
+                "model": {"family": cfg.family,
+                          **({"depth": cfg.depth}
+                             if cfg.family == "resnet" else {}),
                           "num_classes": cfg.num_classes,
                           "image_size": cfg.image_size,
                           "class_names": list(self.server.class_names or [])
@@ -699,9 +704,11 @@ class InferenceServer(ThreadingHTTPServer):
                "seconds since daemon start")
         metric("irp_reloads_total", "counter", self.generation,
                "successful hot weight reloads")
+        depth_label = (f'depth="{cfg.depth}",' if cfg.family == "resnet"
+                       else "")
         metric("irp_model_info", "gauge", 1,
                "model identity (labels carry the values)",
-               labels=(f'{{family="{cfg.family}",depth="{cfg.depth}",'
+               labels=(f'{{family="{cfg.family}",{depth_label}'
                        f'num_classes="{cfg.num_classes}",'
                        f'image_size="{cfg.image_size}",'
                        f'device="{self.batcher.predictor.device}"}}'))

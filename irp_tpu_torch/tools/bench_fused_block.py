@@ -80,12 +80,13 @@ def random_identity_block(c: int, m: int, gen: torch.Generator):
     """A bf16 frozen identity Bottleneck (C -> M -> C) in eval form with
     weights from ``gen``, BN affine and running stats perturbed so that
     the folding matters; in channels_last memory on the card."""
+    from irp_tpu_torch.models.layers import lecun_normal_
     from irp_tpu_torch.models.resnet import Bottleneck
 
     block = Bottleneck(c, m, 1, torch.bfloat16, True, fusable=True)
     with torch.no_grad():
         for conv in (block.conv1, block.conv2, block.conv3):
-            conv.reset_parameters_from(gen)
+            lecun_normal_(conv.weight, conv.weight[0].numel(), gen)
         for bn in (block.bn1, block.bn2, block.bn3):
             f = bn.num_features
             bn.weight.copy_(0.5 + torch.rand(f, generator=gen))

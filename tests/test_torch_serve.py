@@ -165,14 +165,17 @@ class _GatedPredictor:
 
 def test_stop_then_start_keeps_one_dispatcher(predictors):
     """A stop() whose join times out, then start(): the stuck thread must
-    exit once it wakes, leaving exactly one dispatcher."""
+    exit once it wakes, leaving exactly one dispatcher.  Threads that were
+    alive before are told apart by object, not by ``ident``: an ident is
+    reused once its thread exits, so a new dispatcher may carry the ident
+    of an earlier test's thread that exits meanwhile."""
     gated = _GatedPredictor(predictors[0])
-    others = {t.ident for t in threading.enumerate()}
+    others = set(threading.enumerate())
 
     def dispatchers():
         return [t for t in threading.enumerate() if t.is_alive()
                 and t.name == "irp-torch-microbatch"
-                and t.ident not in others]
+                and t not in others]
 
     batcher = MicroBatcher(gated, window_ms=1.0)
     img = decode_blobs([_jpeg(4)])
