@@ -9,6 +9,7 @@ NVIDIA GPU.
   python3 chip_smoke.py --phases device,build,explain
   python3 chip_smoke.py --phases device,build,families
   python3 chip_smoke.py --phases device,build,train
+  python3 chip_smoke.py --phases device,build,families_train
   python3 chip_smoke.py --phases device,build,hyperopt
   python3 chip_smoke.py --phases device,build,final
   python3 chip_smoke.py --phases device,build,profile
@@ -136,7 +137,37 @@ Phases, each printing one JSON line:
               from the f32 step (K1_STEP_*_TOL); the f32 'highest' step on
               the card against the CPU's (CARD_CPU_*_TOL).  Prints train
               images/s at batch 32 and 256 with K1 on and off.
-10. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
+10. families_train — training ViT-B/16, ConvNeXt-Tiny and EfficientNet-B0
+              at full width (224 crop from 256x256, 10 classes, MLP head
+              512, bf16, the variant's stochastic depth and default
+              trainable stages, random weights from the seed).  Per
+              family: (a) fit, 2 epochs of 16 steps at batch 32 on 1,024
+              class-pattern images, eval on 256 each epoch; gates: finite
+              losses, epoch 2's mean loss below epoch 1's, K2 once per
+              eval batch and K1 never, every frozen parameter bit-equal
+              to its init and every trainable one changed, EfficientNet's
+              frozen stages' BN statistics bit-equal; (b) one step at
+              batch 8 on given augmentation, stochastic-depth and dropout
+              draws: the card's f32 'highest' step (TF32 off) against the
+              CPU's on the CPU run's ReLU masks (CARD_CPU_*_TOL per
+              tensor; gradients that vanish but for rounding held below
+              FT_VANISHING), the free reading beside, and the bf16 step's
+              drift from the f32 step (FT_BF16_STEP_TOL).  Then (c)
+              ViT-B/16's f32 step at batch 64 with blocks 8-11 trainable,
+              remat off and on: the same loss (1e-6 relative) and a lower
+              peak; (d) train images/s of train_step at batch 32 and 256,
+              ResNet50 (K1 'auto') and the three in turns, and the
+              device's idle share at batch 32; (e) on EfficientNet-B0,
+              hyperopt_cli --family efficientnet --quick (1 trial x 2
+              folds over 1,024 JPEGs), final_cli --family efficientnet (2
+              epochs over a one-trial study) and predict_cli --shards over
+              its 1,024 test JPEGs: the trial COMPLETE, the five
+              artifacts, the .npz loaded as EfficientNet-B0, >= 99.5% of
+              predict_cli's labels equal to the test evaluation's, K2 once
+              per eval batch and K1 never in each; (f) a ViT-B/16 .pth
+              (export_torch_pth) through fit's pretrained_path: eval
+              logits bit-equal to the source model's before any step.
+11. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
               WebDataset shards of 3,072 synthetic 256x256 JPEGs written
               from the seed by the port's ShardWriter, then
               hyperopt_cli.main --quick (B=16, 2 epochs) with 3 trials x 3
@@ -156,7 +187,7 @@ Phases, each printing one JSON line:
               subset_by_shards's as a multiset.  Prints
               seconds per trial and per fold-fit, the pool's upload and
               select_fold times, and peak memory.
-11. final   — final training, test evaluation and batch prediction,
+12. final   — final training, test evaluation and batch prediction,
               ResNet50/224 bf16, 10 classes, random init: 12 train
               shards (3,072 images) and 4 test shards (1,024 images of
               the same classes, another seed) written by the port's
@@ -178,7 +209,7 @@ Phases, each printing one JSON line:
               probabilities bit-equal on one batch.  Prints the fit's
               seconds and train images/s, the test evaluation's seconds
               and images/s, predict_cli's images/s and peak memory.
-12. profile — only when named in --phases: torch.profiler over batches
+13. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -221,7 +252,8 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
 
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PHASES = ("device", "build", "kernels", "serve", "explain", "families",
-          "curation", "bench", "train", "hyperopt", "final")
+          "curation", "bench", "train", "families_train", "hyperopt",
+          "final")
 EXTRA_PHASES = ("profile",)  # run only when named
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -1886,14 +1918,14 @@ K1_STEP_TOL = {
 TRAIN_TIMED_EPOCHS, TRAIN_PAIRS = 3, 3
 
 
-def _train_sets(seed: int):
-    """(train, val, info): N_TRAIN + N_VAL synthetic images from the seed
+def _train_sets(seed: int, n_train: int = N_TRAIN, n_val: int = N_VAL):
+    """(train, val, info): n_train + n_val synthetic images from the seed
     (made on the card as the curation phase makes them), class weights
     n / (k * count) as the curation CLI's dataset analysis gives them."""
     from irp_tpu_torch.config import DatasetInfo
     from irp_tpu_torch.data.pipeline import CachedDataset
 
-    images, labels, _ = _curation_images(seed + 5, N_TRAIN + N_VAL)
+    images, labels, _ = _curation_images(seed + 5, n_train + n_val)
     names = tuple(f"class{c}" for c in range(N_CLASSES))
 
     def subset(sl):
@@ -1902,13 +1934,13 @@ def _train_sets(seed: int):
                                  *sl.indices(len(labels)))],
                              class_names=names)
 
-    train, val = subset(slice(0, N_TRAIN)), subset(slice(N_TRAIN, None))
+    train, val = subset(slice(0, n_train)), subset(slice(n_train, None))
     counts = np.bincount(train.labels, minlength=N_CLASSES)
     info = DatasetInfo(num_classes=N_CLASSES, class_names=names,
-                       class_weights=tuple(float(N_TRAIN / (N_CLASSES * c))
+                       class_weights=tuple(float(n_train / (N_CLASSES * c))
                                            for c in counts),
                        class_counts=tuple(int(c) for c in counts),
-                       total_samples=N_TRAIN)
+                       total_samples=n_train)
     return train, val, info
 
 
@@ -2229,6 +2261,537 @@ def phase_train(out: dict, seed: int) -> None:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"train checks failed: {failed}")
+
+
+# The families_train phase: ViT-B/16, ConvNeXt-Tiny and EfficientNet-B0
+# trained at full width (the families phase's FAMILY_MODELS), each with its
+# variant's stochastic depth and default trainable stages, from seeded
+# random weights.
+FT_TRAIN, FT_VAL = 1024, 256  # class-pattern images; eval on FT_VAL
+FT_BATCH, FT_EPOCHS, FT_STEPS = 32, 2, 16  # the short fit
+FT_STEP_BATCH = 8  # the card-vs-CPU step on given draws
+FT_REMAT_BATCH = 64
+# ViT-B/16's blocks 8-11 train in the remat check: with one trainable
+# block the recompute holds what the stored activations held
+FT_REMAT_STAGES = ("block8", "block9", "block10", "block11", "ln")
+FT_IPS_STEPS = {32: 10, 256: 5}  # timed steps per turn after FT_WARMUP
+FT_WARMUP = 3
+FT_IDLE_STEPS = 5  # profiled B=32 steps per model for the idle share
+FT_SWEEP_TRAIN_SHARDS = 4  # 1,024 JPEGs for the sweep and the final run
+FT_FINAL_EPOCHS = 2
+# A gradient that vanishes but for rounding (a BN's bias whose output
+# reaches the loss only through a BatchNorm collecting statistics, as
+# EfficientNet's stage7_block0 project BN before the top BN) is held to
+# vanish on the card too: below this share of the step's largest.
+FT_VANISHING = 1e-5
+# The bf16 step's drift from the f32 step on the card, per family: the
+# loss's relative gap and the worst tensor's max|g_bf16 - g_f32| over its
+# own max|g_f32|, each bar twice the first reading on an H100 80GB HBM3
+# at 700 W (loss ViT 1.202e-3, ConvNeXt 7.873e-4, EfficientNet 5.546e-5;
+# worst tensor 0.1663 (ViT's last ln_2 weight), 0.2057 and 0.5837 (the
+# head's first weight); PERF.md §6)
+FT_BF16_STEP_TOL = {"vit": {"loss": 2.40e-3, "per_tensor": 0.333},
+                    "convnext": {"loss": 1.57e-3, "per_tensor": 0.411},
+                    "efficientnet": {"loss": 1.11e-4, "per_tensor": 1.17}}
+
+
+def _ft_cfg(family: str, variant: str, **kw):
+    """The family's ModelConfig at full width: its variant's recipe
+    (stochastic depth, head dropout, default trainable stages), 224 crop,
+    10 classes, MLP head 512, bf16."""
+    from irp_tpu_torch.cli.model_args import model_config_for_family
+
+    return model_config_for_family(
+        family, vit_variant=variant, efficientnet_variant=variant,
+        convnext_variant=variant, num_classes=N_CLASSES, image_size=224,
+        hidden_dim=512, **kw)
+
+
+def _ft_counts() -> dict:
+    from irp_tpu_torch.ops.cuda_image import eval_preprocess
+    from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
+
+    return {"eval_preprocess": eval_preprocess.launches,
+            "identity_bottleneck": fused_identity_bottleneck.launches}
+
+
+def _ft_fit(family, variant, seed, train, val, info) -> tuple:
+    """(a) fit for FT_EPOCHS epochs of FT_STEPS steps at FT_BATCH, eval on
+    FT_VAL each epoch, launches counted from 0; frozen parameters (and
+    the frozen stages' BN statistics) against the init bit for bit."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.models.classifier import init_classifier
+    from irp_tpu_torch.train import fit
+
+    cfg = _ft_cfg(family, variant)
+    tcfg = TrainConfig(batch_size=FT_BATCH, max_epochs=FT_EPOCHS,
+                       patience=99, seed=seed,
+                       train_samples_per_epoch=FT_STEPS * FT_BATCH,
+                       eval_samples=FT_VAL)
+    # fit draws its init from the same seed on the CPU
+    init = init_classifier(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    init_sd = {k: v.clone() for k, v in init.state_dict().items()}
+    frozen_bn = {f"{name}.{buf}" for name, m in init.named_modules()
+                 if getattr(m, "frozen", False)
+                 for buf in ("running_mean", "running_var")}
+    trainable = {n for n, p in init.named_parameters() if p.requires_grad}
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(train, val, info, cfg, tcfg)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _ft_counts()
+    after = {k: v.detach().cpu() for k, v in
+             res.state.model.state_dict().items()}
+    params = [n for n, _ in init.named_parameters()]
+    h = res.history
+    eval_batches = math.ceil(FT_VAL / FT_BATCH)
+    report = {
+        "config": _architecture(cfg) | {
+            "stochastic_depth": cfg.stochastic_depth,
+            "dropout_rate": cfg.dropout_rate,
+            "trainable_stages": list(cfg.trainable_stages),
+            "sd_blocks": len(init.sd_probs())},
+        "fit_s": fit_s, "history": h, "best_val_acc": res.best_val_acc,
+        "train_images_per_s": [FT_STEPS * FT_BATCH / (ms / 1e3)
+                               for ms in h["train_ms"]],
+        "trainable_tensors": len(trainable),
+        "frozen_tensors": len(params) - len(trainable),
+        "frozen_bn_buffers": len(frozen_bn), "launches": launches,
+        "expected_launches": {"eval_preprocess": FT_EPOCHS * eval_batches,
+                              "identity_bottleneck": 0}}
+    checks = {
+        "losses_finite": bool(np.isfinite(h["train_loss"]).all()
+                              and np.isfinite(h["val_loss"]).all()),
+        "loss_falls": h["train_loss"][1] < h["train_loss"][0],
+        "k2_once_per_eval_batch_k1_never":
+            launches == report["expected_launches"],
+        "frozen_params_unchanged": all(
+            torch.equal(after[n], init_sd[n]) for n in params
+            if n not in trainable),
+        "trainable_params_changed": all(
+            not torch.equal(after[n], init_sd[n]) for n in trainable)}
+    if family == "efficientnet":
+        checks["frozen_bn_stats_unchanged"] = bool(frozen_bn) and all(
+            torch.equal(after[k], init_sd[k]) for k in frozen_bn)
+    return report, checks, init_sd
+
+
+def _ft_step(cfg, sd, x, y, cw, masks, device, relu=None):
+    """Loss and trainable gradients (host float64) of one train step of a
+    model with weights ``sd`` on ``device`` from the augmented batch
+    ``x`` and the given (stochastic-depth, head dropout) masks; ``relu``:
+    a ``relu_masks`` context to run the step in."""
+    import contextlib
+
+    from irp_tpu_torch.models.classifier import get_classifier
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.step import StepConfig, loss_and_grads
+
+    model = get_classifier(cfg, device=device)
+    model.load_state_dict(sd)
+    set_mode(model, True)
+    dtype = getattr(torch, cfg.compute_dtype)
+    scfg = StepConfig(out_size=cfg.image_size, compute_dtype=dtype,
+                      dropout_rate=cfg.dropout_rate)
+    sd_masks = {k: m.to(device) for k, m in masks[0].items()}
+    head = tuple(m.to(device) for m in masks[1])
+    with relu or contextlib.nullcontext():
+        loss, _ = loss_and_grads(model, x.to(device, dtype), y.to(device),
+                                 scfg, torch.tensor(cw, device=device),
+                                 dropout_masks=head, sd_masks=sd_masks)
+    return float(loss), {n: p.grad.double().cpu().numpy()
+                         for n, p in model.named_parameters()
+                         if p.requires_grad}
+
+
+def _ft_gap(got: tuple, want: tuple) -> dict:
+    """The loss's relative gap and, per tensor, max|got - want| over that
+    tensor's max|want| (the worst, and where), tensors whose gradient
+    vanishes held to FT_VANISHING of the step's largest."""
+    g, w = got[1], want[1]
+    largest = max(float(np.abs(t).max()) for t in w.values())
+    noise = FT_VANISHING * largest
+    per, vanishing = {}, {}
+    for n in w:
+        scale = float(np.abs(w[n]).max())
+        if scale <= noise:
+            vanishing[n] = float(np.abs(g[n]).max()) / largest
+        else:
+            per[n] = float(np.abs(g[n] - w[n]).max()) / scale
+    worst = max(per, key=per.get)
+    return {"loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+            "per_tensor": per[worst], "worst": worst,
+            "vanishing_tensors": len(vanishing),
+            "vanishing_max_share": max(vanishing.values(), default=0.0)}
+
+
+def _ft_card_vs_cpu(family, variant, sd, train, info, seed) -> tuple:
+    """(b) one step at FT_STEP_BATCH on given augmentation, stochastic-
+    depth and dropout draws: the card's f32 'highest' step (TF32 off)
+    against the CPU's on the CPU run's ReLU masks (and free), and the
+    card's bf16 step against its f32 step."""
+    from irp_tpu_torch.models.classifier import Classifier
+    from irp_tpu_torch.models.layers import sample_sd_masks
+    from irp_tpu_torch.ops.preprocess import sample_augment_draws
+    from irp_tpu_torch.tools.step_conditioning import relu_masks
+
+    cfg = _ft_cfg(family, variant)
+    n = FT_STEP_BATCH
+    gen = torch.Generator().manual_seed(seed + 1)
+    # ConvNeXt's layer scales start at 1e-6, which leaves its blocks'
+    # gradients 1e-6 of the head's: drawn in [0.1, 0.5] they weigh in
+    sd = {k: (0.1 + 0.4 * torch.rand(v.shape, generator=gen)
+              if k.endswith("layer_scale") else v) for k, v in sd.items()}
+    draws = sample_augment_draws(gen, n, 256, 256, "medium")
+    x, y = _augmented(train.images[:n], train.labels[:n], draws, "cpu")
+    probe = Classifier(cfg)
+    keep = 1.0 - cfg.dropout_rate
+    masks = (sample_sd_masks(probe.sd_probs(), n, gen),
+             (torch.rand(n, probe.backbone.num_features, generator=gen)
+              < keep,
+              torch.rand(n, cfg.hidden_dim, generator=gen) < keep))
+    cw = info.class_weights
+    f32 = _f32(cfg)
+    recorded = {"cpu": [], "cuda": []}
+    cpu = _ft_step(f32, sd, x, y, cw, masks, "cpu",
+                   relu_masks(recorded["cpu"], record=True))
+    card = _ft_step(f32, sd, x, y, cw, masks, "cuda",
+                    relu_masks(recorded["cuda"], record=True))
+    held = _ft_step(f32, sd, x, y, cw, masks, "cuda",
+                    relu_masks(recorded["cpu"], record=False))
+    bf16 = _ft_step(cfg, sd, x, y, cw, masks, "cuda")
+    report = {
+        "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+        "sd_masks_dropped": {k: int((~m).sum()) for k, m in
+                             masks[0].items()},
+        "f32_card_vs_cpu_on_cpu_masks": _ft_gap(held, cpu),
+        "f32_card_vs_cpu_free": _ft_gap(card, cpu),
+        "relu_elements_masked_differently": sum(
+            int((a.cpu() != b).sum())
+            for a, b in zip(recorded["cuda"], recorded["cpu"])),
+        "bf16_vs_f32_card": _ft_gap(bf16, card)}
+    on_masks = report["f32_card_vs_cpu_on_cpu_masks"]
+    drift = report["bf16_vs_f32_card"]
+    tol = FT_BF16_STEP_TOL[family]
+    checks = {
+        "tf32_off": not torch.backends.cuda.matmul.allow_tf32,
+        "f32_card_vs_cpu_loss": on_masks["loss_rel"] <= CARD_CPU_LOSS_TOL,
+        "f32_card_vs_cpu_grads_per_tensor":
+            on_masks["per_tensor"] <= CARD_CPU_GRAD_TOL,
+        "f32_card_vs_cpu_vanishing":
+            on_masks["vanishing_max_share"] <= FT_VANISHING,
+        "bf16_step_finite": all(np.isfinite(g).all()
+                                for g in bf16[1].values())
+        and math.isfinite(bf16[0])}
+    checks["bf16_vs_f32_loss"] = drift["loss_rel"] <= tol["loss"]
+    checks["bf16_vs_f32_per_tensor"] = (drift["per_tensor"]
+                                        <= tol["per_tensor"])
+    return report, checks
+
+
+def _ft_remat(sd, seed) -> tuple:
+    """(c) ViT-B/16's f32 step at FT_REMAT_BATCH with blocks 8-11
+    trainable, remat off and on: the loss and the peak allocated memory
+    above the step's inputs."""
+    import dataclasses
+
+    from irp_tpu_torch.models.classifier import get_classifier
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.step import StepConfig, loss_and_grads
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(FT_REMAT_BATCH, 224, 224, 3, device="cuda",
+                    generator=gen)
+    y = torch.randint(0, N_CLASSES, (FT_REMAT_BATCH,), device="cuda",
+                      generator=gen)
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(
+            _f32(_ft_cfg("vit", "b_16")), dropout_rate=0.0,
+            trainable_stages=FT_REMAT_STAGES, remat_trainable_blocks=remat)
+        model = get_classifier(cfg, device="cuda")
+        model.load_state_dict(sd)
+        set_mode(model, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = loss_and_grads(model, x, y, StepConfig(
+            compute_dtype=torch.float32, dropout_rate=0.0))
+        torch.cuda.synchronize()
+        runs["on" if remat else "off"] = {
+            "loss": float(loss),
+            "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}
+        del model
+        torch.cuda.empty_cache()
+    report = {"batch": FT_REMAT_BATCH, "trainable": list(FT_REMAT_STAGES),
+              **runs, "loss_rel": abs(runs["on"]["loss"]
+                                      - runs["off"]["loss"])
+              / abs(runs["off"]["loss"])}
+    checks = {"remat_loss_equal": report["loss_rel"] <= 1e-6,
+              "remat_lowers_peak": runs["on"]["peak_mb"]
+              < runs["off"]["peak_mb"]}
+    return report, checks
+
+
+def _ft_images_per_s(models: dict, train, info, seed) -> dict:
+    """(d) train images/s of train_step at each batch of FT_IPS_STEPS, the
+    models in turns (the order, then back), CUDA events around the timed
+    steps after FT_WARMUP; then the device's idle share over
+    FT_IDLE_STEPS profiled steps at batch 32."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.models.classifier import init_classifier
+    from irp_tpu_torch.train.state import create_train_state
+    from irp_tpu_torch.train.step import StepConfig, train_step
+
+    cw = torch.tensor(info.class_weights, device="cuda")
+    states = {}
+    for name, cfg in models.items():
+        model = init_classifier(cfg, torch.Generator().manual_seed(seed))
+        states[name] = (create_train_state(model, TrainConfig(), cfg, 100),
+                        StepConfig(intensity="medium", out_size=224,
+                                   compute_dtype=torch.bfloat16,
+                                   dropout_rate=cfg.dropout_rate))
+    order = list(models)
+    ips = {name: {} for name in order}
+    idle = {}
+    for b, steps in FT_IPS_STEPS.items():
+        images = torch.from_numpy(train.images[:b]).cuda()
+        labels = torch.from_numpy(train.labels[:b]).long().cuda()
+        for name in order + order[::-1]:
+            state, scfg = states[name]
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            mix_rng = np.random.default_rng(seed)
+
+            def step():
+                train_step(state, images, labels, scfg, cw, gen, mix_rng)
+
+            for _ in range(FT_WARMUP):
+                step()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                step()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            ips[name].setdefault(str(b), []).append(steps * b / (ms / 1e3))
+            if b == 32 and name not in idle:
+                prof = _profiled(step, FT_IDLE_STEPS)
+                idle[name] = {k: prof[k] for k in (
+                    "wall_ms", "device_busy_ms", "device_idle_share",
+                    "kernels")}
+    return {"order": order + order[::-1], "images_per_s": ips,
+            "b32_idle": idle}
+
+
+def _ft_clis(seed, tmp) -> tuple:
+    """(e) the CLIs on EfficientNet-B0: hyperopt_cli --family
+    efficientnet --quick (1 trial x 2 folds) over FT_SWEEP_TRAIN_SHARDS
+    shards, final_cli --family efficientnet over the one-trial study of
+    _final_world (FT_FINAL_EPOCHS epochs), predict_cli --shards over the
+    test shards with its final_model.npz; launches from 0 per run."""
+    import contextlib
+    import csv
+
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.cli import final_cli, hyperopt_cli, predict_cli
+    from irp_tpu_torch.data.analyze import analyze_webdataset
+    from irp_tpu_torch.data.kfold import create_stratified_kfolds
+    from irp_tpu_torch.data.pipeline import build_cache
+    from irp_tpu_torch.hyperopt.study import create_study
+    from irp_tpu_torch.infer import load_predictor
+
+    family = ["--family", "efficientnet", "--efficientnet-variant", "b0"]
+    world = _final_world(tmp, seed, FT_FINAL_EPOCHS,
+                         train_shards=FT_SWEEP_TRAIN_SHARDS)
+    data, uri, cache = world["data"], world["uri"], f"{tmp}/cache"
+    runs, checks = {"write_shards_s": world["write_s"]}, {}
+
+    # the sweep
+    n_of = {s: HPO_PER_SHARD for s in world["train"]}
+    folds = create_stratified_kfolds(world["train"], k=2, seed=seed)
+    db = f"{tmp}/sweep.db"
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with _SweepProbe() as probe:
+        rc = hyperopt_cli.main([
+            "--data-dir", data, "--quick", "--n-trials", "1",
+            "--k-folds", "2", "--first-fold-min-acc", "0", "--storage", db,
+            "--study-name", "families_train", "--cache-dir", cache,
+            "--seed", str(seed), *family])
+    trials = create_study("families_train", db).get_trials()
+    runs["sweep"] = {
+        "seconds": time.perf_counter() - t0, "rc": rc,
+        "launches": _ft_counts(),
+        "expected_launches": _sweep_launches(
+            folds, 1, batch=16, eval_samples=512, train_samples=1024,
+            epochs=2, n_samples_of=n_of) | {"identity_bottleneck": 0},
+        "trials": [(t.state, t.value) for t in trials], **probe.summary()}
+    checks["sweep_rc_0"] = rc == 0
+    checks["sweep_trial_complete"] = (
+        len(trials) == 1 and trials[0].state == "COMPLETE"
+        and math.isfinite(trials[0].value))
+
+    # the final run over _final_world's one-trial study
+    ckpt = f"{tmp}/ckpt"
+    tracking.set_tracking_uri(uri)
+    n_test = FINAL_TEST_SHARDS * HPO_PER_SHARD
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with _FinalProbe() as probe:
+        rc = final_cli.main(["--data-dir", data, "--storage", world["db"],
+                             "--study-name", "smoke_final",
+                             "--cache-dir", cache, "--checkpoint-dir", ckpt,
+                             *family])
+    res = probe.results[0]
+    client = tracking.TrackingClient(uri)
+    artifacts = client.list_artifacts(res.run_id)
+    npz = client.artifact_path(res.run_id, "final_model.npz")
+    pred = load_predictor(npz, batch_size=256)
+    card = pred.model.config
+    runs["final"] = {
+        "seconds": time.perf_counter() - t0, "rc": rc,
+        "launches": _ft_counts(),
+        "expected_launches": {"eval_preprocess": math.ceil(
+            n_test / FINAL_BATCH), "identity_bottleneck": 0},
+        **probe.summary(n_test), "artifacts": artifacts,
+        "model": {"family": card.family, "width_mult": card.width_mult,
+                  "depth_mult": card.depth_mult,
+                  "num_classes": card.num_classes,
+                  "image_size": card.image_size}}
+    checks["final_rc_0"] = rc == 0
+    checks["final_epochs"] = runs["final"]["epochs"] == FT_FINAL_EPOCHS
+    checks["final_artifacts"] = sorted(artifacts) == list(FINAL_ARTIFACTS)
+    checks["final_model_is_efficientnet_b0"] = (
+        card.family == "efficientnet"
+        and (card.width_mult, card.depth_mult) == (1.0, 1.0))
+
+    # batch prediction with the final .npz
+    info = analyze_webdataset(world["train"])
+    test_cached = build_cache(world["test"], info.class_names,
+                              cache_dir=cache)
+    preds_csv = f"{tmp}/preds.csv"
+    printed = io.StringIO()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = predict_cli.main([
+            "--weights", npz, "--shards", f"{data}/test-*.tar",
+            "--batch-size", "256", "--classes", ",".join(info.class_names),
+            "--out", preds_csv])
+    seconds = time.perf_counter() - t0
+    launches = _ft_counts()
+    summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+    with open(preds_csv) as f:
+        labels = {row["key"]: int(row["label"]) for row in csv.DictReader(f)}
+    evaluated = dict(zip(test_cached.keys, probe.evals[0][1].preds.tolist()))
+    agree = (sum(labels.get(k) == v for k, v in evaluated.items())
+             / len(evaluated))
+    runs["predict"] = {
+        "seconds": seconds, "rc": rc,
+        "imgs_per_sec": summary.get("imgs_per_sec"),
+        "label_agreement_with_eval": agree, "launches": launches,
+        "expected_launches": {"eval_preprocess": math.ceil(n_test / 256),
+                              "identity_bottleneck": 0}}
+    checks["predict_rc_0"] = rc == 0
+    checks["predict_agreement"] = agree >= PREDICT_AGREEMENT
+    for name in ("sweep", "final", "predict"):
+        checks[f"{name}_launches"] = (runs[name]["launches"]
+                                      == runs[name]["expected_launches"])
+    return runs, checks
+
+
+def _ft_pretrained(seed, train, val, info, tmp) -> tuple:
+    """(f) a torchvision-layout .pth of seeded ViT-B/16 weights (the
+    families phase's model), written by export_torch_pth, through fit's
+    pretrained_path: before the first step (0 epochs) the merged model's
+    eval logits equal the source model's bit for bit."""
+    import dataclasses
+    import os
+
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.train import fit
+    from irp_tpu_torch.train.checkpoint import export_torch_pth
+    from irp_tpu_torch.train.step import eval_step
+
+    # in the memory format fit's model has, so that both forwards are one
+    # program
+    source = _family_model("vit", "b_16", seed + 3).to(
+        "cuda", memory_format=torch.channels_last)
+    path = export_torch_pth(f"{tmp}/vit_b_16.pth", source)
+    cfg = dataclasses.replace(_ft_cfg("vit", "b_16"), pretrained_path=path)
+    res = fit(train, val, info, cfg, TrainConfig(
+        batch_size=FT_BATCH, max_epochs=0, seed=seed, eval_samples=FT_VAL))
+    batch = torch.from_numpy(val.images[:FT_BATCH]).cuda()
+    got = eval_step(res.state.model.eval(), batch)
+    want = eval_step(source.eval(), batch)
+    return ({"pth": os.path.basename(path),
+             "logits_max_abs": float(want.abs().max())},
+            {"pretrained_logits_bit_equal": bool(torch.equal(got, want))})
+
+
+def phase_families_train(out: dict, seed: int) -> None:
+    """Training of ViT-B/16, ConvNeXt-Tiny and EfficientNet-B0 on the card:
+    (a) fit per family with launch and freezing gates; (b) the card's f32
+    step against the CPU's on given draws, and the bf16 step's drift;
+    (c) ViT-B/16's remat; (d) train images/s in turns with ResNet50 and
+    the idle share at batch 32; (e) the sweep, final and predict CLIs on
+    EfficientNet-B0; (f) a ViT-B/16 .pth through fit's pretrained_path."""
+    t_phase = time.perf_counter()
+    train, val, info = _train_sets(seed, FT_TRAIN, FT_VAL)
+    checks, report = {}, {"fits": {}, "steps": {}}
+    launches = {"eval_preprocess": 0, "identity_bottleneck": 0}
+    init_sd = {}
+    for family, variant in FAMILY_MODELS:
+        t0 = time.perf_counter()
+        fit_report, fit_checks, init_sd[family] = _ft_fit(
+            family, variant, seed, train, val, info)
+        _add_launches(launches, fit_report["launches"])
+        step_report, step_checks = _ft_card_vs_cpu(
+            family, variant, init_sd[family], train, info, seed)
+        report["fits"][family] = fit_report
+        report["steps"][family] = step_report
+        checks.update({f"{family}_{k}": v for k, v in
+                       {**fit_checks, **step_checks}.items()})
+        emit({"phase": "families_train", "family": family,
+              "variant": variant, "seconds": time.perf_counter() - t0,
+              "fit": fit_report, "step_b8": step_report,
+              "checks": {**fit_checks, **step_checks}})
+    t0 = time.perf_counter()
+    remat, remat_checks = _ft_remat(init_sd["vit"], seed)
+    remat["seconds"] = time.perf_counter() - t0
+    checks.update(remat_checks)
+    emit({"phase": "families_train", "part": "remat_vit_b_16", **remat,
+          "checks": remat_checks})
+    t0 = time.perf_counter()
+    models = {"resnet50": _train_model_cfg(fused_frozen_blocks="auto")}
+    models.update({f"{f}_{v}": _ft_cfg(f, v) for f, v in FAMILY_MODELS})
+    ips = _ft_images_per_s(models, train, info, seed)
+    ips["seconds"] = time.perf_counter() - t0
+    emit({"phase": "families_train", "part": "train_images_per_s", **ips})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli_runs, cli_checks = _ft_clis(seed, tmp)
+        cli_runs["seconds"] = time.perf_counter() - t0
+        for name in ("sweep", "final", "predict"):
+            _add_launches(launches, cli_runs[name]["launches"])
+        checks.update({f"cli_{k}": v for k, v in cli_checks.items()})
+        emit({"phase": "families_train", "part": "clis_efficientnet_b0",
+              **cli_runs, "checks": cli_checks})
+        pre, pre_checks = _ft_pretrained(seed, train, val, info, tmp)
+        checks.update(pre_checks)
+    out["launches"]["families_train"] = launches
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "families_train", "seconds": seconds,
+          "pretrained": pre, "launches": launches, "checks": checks})
+    out["families_train"] = {"seconds": seconds,
+                             "images_per_s": ips["images_per_s"]}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"families_train checks failed: {failed}")
 
 
 # the sweep: synthetic JPEG shards at 256 px, 10 classes
@@ -2633,9 +3196,11 @@ def _png_opens(path: str) -> bool:
         return im.format == "PNG"
 
 
-def _final_world(tmp: str, seed: int, epochs: int) -> dict:
-    """The final phase's inputs under ``tmp``: 12 train shards and
-    FINAL_TEST_SHARDS test shards of the same classes (another seed), a
+def _final_world(tmp: str, seed: int, epochs: int,
+                 train_shards: int = HPO_SHARDS) -> dict:
+    """The final phase's inputs under ``tmp``: ``train_shards`` train
+    shards and FINAL_TEST_SHARDS test shards of the same classes (another
+    seed), a
     tracking store whose sweep run holds ``recommended_epochs = epochs``,
     and a study database with one COMPLETE trial of FINAL_PARAMS joined
     to that run."""
@@ -2644,7 +3209,7 @@ def _final_world(tmp: str, seed: int, epochs: int) -> dict:
 
     data = f"{tmp}/shards"
     t0 = time.perf_counter()
-    train_shards = _write_shards(seed, data)
+    train_shards = _write_shards(seed, data, n_shards=train_shards)
     # the test set: the train shards' class patterns, other images
     test_shards = _write_shards(seed + 1, data, "test", FINAL_TEST_SHARDS,
                                 patterns_seed=seed + 7)
@@ -3067,6 +3632,8 @@ def main(argv=None) -> int:
         phase_bench(out, args.seed)
     if "train" in phases:
         phase_train(out, args.seed)
+    if "families_train" in phases:
+        phase_families_train(out, args.seed)
     if "hyperopt" in phases:
         phase_hyperopt(out, args.seed)
     if "final" in phases:

@@ -25,8 +25,7 @@ import sys
 
 from irp_tpu_torch.cli.model_args import (add_model_family_args,
                                           add_train_recipe_args,
-                                          build_model_base, build_train_base,
-                                          refuse_untrained_family)
+                                          build_model_base, build_train_base)
 
 
 def main(argv=None):
@@ -43,7 +42,9 @@ def main(argv=None):
                         "in --checkpoint-dir (the optimizer's moments and "
                         "the schedule's position carry over)")
     p.add_argument("--pretrained", default=None,
-                   help="torchvision resnet50 .pth to initialize from")
+                   help="torchvision-layout .pth of the --family "
+                        "model (e.g. resnet50, vit_b_16) to initialize "
+                        "from")
     add_model_family_args(p)
     add_train_recipe_args(p)
     p.add_argument("--image-size", type=int, default=224)
@@ -59,7 +60,6 @@ def main(argv=None):
     if args.resume and not args.checkpoint_dir:
         print("--resume requires --checkpoint-dir", file=sys.stderr)
         return 2
-    refuse_untrained_family(args.family)
 
     from irp_tpu_torch import tracking
     from irp_tpu_torch._kernels import resolve_device

@@ -19,8 +19,7 @@ import sys
 
 from irp_tpu_torch.cli.model_args import (add_model_family_args,
                                           add_train_recipe_args,
-                                          build_model_base, build_train_base,
-                                          refuse_untrained_family)
+                                          build_model_base, build_train_base)
 
 
 def main(argv=None):
@@ -36,7 +35,9 @@ def main(argv=None):
     p.add_argument("--experiment", default="animals10")
     p.add_argument("--cache-dir", default="./data/cache")
     p.add_argument("--pretrained", default=None,
-                   help="torchvision resnet50 .pth to initialize from")
+                   help="torchvision-layout .pth of the --family "
+                        "model (e.g. resnet50, vit_b_16) to initialize "
+                        "from")
     p.add_argument("--seed", type=int, default=42)
     add_model_family_args(p)
     add_train_recipe_args(p)
@@ -68,7 +69,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--parallel-workers is not ported to irp_tpu_torch: one device "
             "runs the trials in sequence (ROADMAP A14)")
-    refuse_untrained_family(args.family)
 
     from irp_tpu_torch import tracking
     from irp_tpu_torch._kernels import resolve_device

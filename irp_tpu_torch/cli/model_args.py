@@ -6,8 +6,10 @@ The flags are the JAX package's, so a command line carries over:
 ``--family efficientnet --efficientnet-variant b0`` or ``--family
 convnext --convnext-variant tiny`` (the variant tables of
 ``models/vit.py``, ``models/efficientnet.py``, ``models/convnext.py``).
-The port serves every family; training one other than ResNet is ROADMAP
-A13b, and the training CLIs refuse it (:func:`refuse_untrained_family`).
+Every family serves and trains; the recipe flags
+(:func:`add_train_recipe_args`: mixup, CutMix, label smoothing, EMA, the
+optimizer, the schedule, gradient accumulation) reach each family's run
+through :func:`build_train_base`.
 """
 
 from __future__ import annotations
@@ -18,9 +20,7 @@ def add_model_family_args(parser) -> None:
                         choices=("resnet", "vit", "efficientnet",
                                  "convnext"),
                         default="resnet",
-                        help="backbone family (default: resnet; the "
-                             "others serve, their training is not ported "
-                             "yet)")
+                        help="backbone family (default: resnet)")
     parser.add_argument("--depth", type=int, default=50,
                         help="ResNet depth 18/34/50/101/152 "
                              "(--family resnet only)")
@@ -66,17 +66,6 @@ def build_model_base(args, num_classes: int):
         efficientnet_variant=args.efficientnet_variant,
         convnext_variant=args.convnext_variant, num_classes=num_classes,
         image_size=args.image_size, pretrained_path=args.pretrained)
-
-
-def refuse_untrained_family(family: str) -> None:
-    """The training CLIs train the ResNet family only: raise for another
-    (its train-mode forward and freezing are ROADMAP A13b)."""
-    if family != "resnet":
-        raise NotImplementedError(
-            f"training family {family!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1, A13b: the train-mode forward, freezing, remat and "
-            f"fit of the other families; they serve through "
-            f"load_predictor)")
 
 
 def add_train_recipe_args(parser) -> None:

@@ -4,8 +4,7 @@ The port's own copy of the constants and of ``ModelConfig``,
 ``DatasetInfo`` and ``TrainConfig`` from the JAX package's ``config.py``:
 the same fields with the same defaults, so that a configuration means the
 same model and the same training run in both packages.  All four families
-(ResNet, ViT, EfficientNet, ConvNeXt) serve; only the ResNet family
-trains so far (ROADMAP A13b).
+(ResNet, ViT, EfficientNet, ConvNeXt) serve and train.
 """
 
 from __future__ import annotations

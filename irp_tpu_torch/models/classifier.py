@@ -11,13 +11,16 @@ the JAX package's stage names and freezing rules
 ResNet bottleneck kernel: ``fused_frozen_blocks='on'`` is refused for the
 other families and 'auto' runs them unfused.
 
-Training (the ResNet family; the others' train-mode forward comes with
-ROADMAP A13b): the head's dropout takes its rate at run time and its mask
-from the caller or from a generator the caller gives (:class:`Dropout`);
-parameters outside the trainable stages get ``requires_grad=False``
-(:func:`resolve_trainable_stages`); the losses are the JAX package's
-class-weighted cross-entropies (:func:`weighted_cross_entropy`,
-:func:`mixed_weighted_cross_entropy`).
+Training (every family): the head's dropout takes its rate at run time
+and its mask from the caller or from a generator the caller gives
+(:class:`Dropout`); stochastic depth (EfficientNet, ConvNeXt) takes each
+block's per-sample keep mask from the caller (``sd_masks``) or draws them
+from the same generator before the forward
+(``models/layers.py::sample_sd_masks``); parameters outside the trainable
+stages get ``requires_grad=False`` by the family's stage names
+(:func:`backbone_stage`, the JAX package's ``trainable_mask``); the losses
+are the JAX package's class-weighted cross-entropies
+(:func:`weighted_cross_entropy`, :func:`mixed_weighted_cross_entropy`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from irp_tpu_torch.models.convnext import (STAGE_COUNT as _CNX_STAGES,
 from irp_tpu_torch.models.efficientnet import (
     STAGE_COUNT as _EFF_STAGES, EfficientNet,
     efficientnet_default_trainable_stages)
-from irp_tpu_torch.models.layers import Linear, at_least_f32, lecun_normal_
+from irp_tpu_torch.models.layers import (Linear, at_least_f32, lecun_normal_,
+                                         sample_sd_masks)
 from irp_tpu_torch.models.resnet import BOTTLENECK_DEPTHS, STAGE_NAMES, ResNet
 from irp_tpu_torch.models.vit import (VisionTransformer, resolve_num_heads,
                                       vit_default_trainable_stages)
@@ -62,12 +66,6 @@ class Dropout(nn.Module):
                               device=x.device) < keep
         divisor = float(torch.tensor(max(keep, 1e-6)).to(x.dtype))
         return torch.where(mask, x / divisor, torch.zeros_like(x))
-
-
-_TRAIN_LATER = ("the train-mode forward of family {!r} is not ported yet "
-                "(ROADMAP.md, Queue 1, A13b: stochastic depth with its "
-                "draws as arguments, freezing, remat, fit and the training "
-                "CLIs for the other families); its eval forward serves")
 
 
 def resolve_trainable_stages(cfg: ModelConfig) -> tuple:
@@ -154,14 +152,44 @@ def _convnext_freezing(cfg: ModelConfig, stages: tuple) -> int:
     return _stage_prefix(stages, _CNX_STAGES, "ConvNeXt", "ln")
 
 
-def is_trainable(name: str, stages: Sequence[str]) -> bool:
-    """Whether the parameter ``name`` (a state_dict key) trains: the head
-    always; a backbone parameter when its stage is in ``stages`` (the stem
-    is in none)."""
+_VIT_EMBED = ("conv_proj", "class_token", "encoder.pos_embedding")
+
+
+def backbone_stage(name: str, family: str) -> str:
+    """The JAX package's stage name of a backbone state_dict key (without
+    ``backbone.``), as ``train/state.py::trainable_mask`` reads it off the
+    flax path: ResNet ``layer<i>`` (the stem's ``conv1``/``bn1`` are in no
+    stage); ViT ``embed`` (conv_proj, class token, position embedding),
+    ``block<i>``, ``ln``; EfficientNet ``stem``, ``stage<s>``, ``top``;
+    ConvNeXt ``stem``, ``stage<s>`` (with the downsample into it),
+    ``ln``."""
     parts = name.split(".")
-    if parts[0] != "backbone":
+    if family == "vit":
+        if name.startswith(_VIT_EMBED):
+            return "embed"
+        if parts[1] == "layers":  # encoder.layers.encoder_layer_<i>.
+            return "block" + parts[2][len("encoder_layer_"):]
+        return "ln"  # encoder.ln
+    if family in ("efficientnet", "convnext"):
+        if parts[0] == "ln":
+            return "ln"
+        idx = int(parts[1])  # features.<idx>.
+        if idx == 0:
+            return "stem"
+        if family == "efficientnet":
+            return "top" if idx == _EFF_STAGES + 1 else f"stage{idx}"
+        # odd: stage (idx + 1) // 2; even: the downsample into idx // 2 + 1
+        return f"stage{(idx + 1) // 2 if idx % 2 else idx // 2 + 1}"
+    return parts[0]
+
+
+def is_trainable(name: str, stages: Sequence[str], family: str) -> bool:
+    """Whether the parameter ``name`` (a state_dict key) trains: the head
+    always; a backbone parameter when its stage (:func:`backbone_stage`)
+    is in ``stages``."""
+    if not name.startswith("backbone."):
         return True
-    return len(parts) > 2 and parts[1] in stages
+    return backbone_stage(name[len("backbone."):], family) in stages
 
 
 def _frozen_prefix(cfg: ModelConfig) -> int:
@@ -211,22 +239,29 @@ def _build_backbone(cfg: ModelConfig, dtype: torch.dtype) -> nn.Module:
     if cfg.fused_frozen_blocks == "on":
         raise ValueError(f"fused_frozen_blocks='on' is a ResNet bottleneck "
                          f"kernel; not available for family={cfg.family!r}")
-    # the family's stage names are checked as the JAX package checks them
-    # (ValueError); what they freeze matters to training only (A13b)
-    freezing = {"vit": _vit_frozen_prefix,
-                "efficientnet": _efficientnet_freezing,
-                "convnext": _convnext_freezing}[cfg.family]
-    freezing(cfg, resolve_trainable_stages(cfg))
+    stages = resolve_trainable_stages(cfg)
+    remat = cfg.remat_trainable_blocks
     if cfg.family == "vit":
         return VisionTransformer(
             patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
             num_layers=cfg.num_layers, num_heads=resolve_num_heads(cfg),
-            mlp_dim=cfg.mlp_dim, image_size=cfg.image_size, dtype=dtype)
+            mlp_dim=cfg.mlp_dim, image_size=cfg.image_size, dtype=dtype,
+            frozen_prefix=_vit_frozen_prefix(cfg, stages),
+            remat_blocks=remat)
     if cfg.family == "efficientnet":
+        frozen_prefix, top_frozen = _efficientnet_freezing(cfg, stages)
         return EfficientNet(width_mult=cfg.width_mult,
-                            depth_mult=cfg.depth_mult, dtype=dtype)
+                            depth_mult=cfg.depth_mult, dtype=dtype,
+                            frozen_prefix=frozen_prefix,
+                            top_frozen=top_frozen,
+                            bn_stats_mode=cfg.bn_stats_mode,
+                            stochastic_depth_prob=cfg.stochastic_depth,
+                            remat_blocks=remat)
     return ConvNeXt(dims=tuple(cfg.convnext_dims),
-                    depths=tuple(cfg.convnext_depths), dtype=dtype)
+                    depths=tuple(cfg.convnext_depths), dtype=dtype,
+                    frozen_prefix=_convnext_freezing(cfg, stages),
+                    stochastic_depth_prob=cfg.stochastic_depth,
+                    remat_blocks=remat)
 
 
 class Classifier(nn.Module):
@@ -255,10 +290,9 @@ class Classifier(nn.Module):
             nn.ReLU(),
             Dropout(),
             Linear(cfg.hidden_dim, cfg.num_classes, dtype))
-        if cfg.family == "resnet":  # the others train with A13b
-            stages = () if cfg.head_only else resolve_trainable_stages(cfg)
-            for name, p in self.named_parameters():
-                p.requires_grad_(is_trainable(name, stages))
+        stages = () if cfg.head_only else resolve_trainable_stages(cfg)
+        for name, p in self.named_parameters():
+            p.requires_grad_(is_trainable(name, stages, cfg.family))
 
     def precision_scope(self, x):
         """The context a forward on ``x`` runs in, and its backward must
@@ -275,17 +309,32 @@ class Classifier(nn.Module):
 
     def forward(self, x, dropout_rate: Optional[float] = None,
                 dropout_masks=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                sd_masks=None):
         """f32 logits.  In train mode the head's two dropouts run at
         ``dropout_rate`` (the config's when None), with ``dropout_masks``
-        (a pair of bool tensors) or masks drawn from ``generator``; the
-        train mode of the families other than ResNet raises (A13b)."""
-        if self.training and self.config.family != "resnet":
-            raise NotImplementedError(_TRAIN_LATER.format(
-                self.config.family))
+        (a pair of bool tensors) or masks drawn from ``generator``, and
+        the backbone's stochastic depth with ``sd_masks`` (block name ->
+        (B,) bool keep mask, :meth:`sd_probs` names the blocks) or masks
+        drawn from ``generator`` first.  In the JAX package's order of
+        draws: the blocks in forward order, then the head's two."""
         with self.precision_scope(x):
-            return self.head(self.backbone(x), dropout_rate, dropout_masks,
-                             generator)
+            if self.config.family == "resnet":
+                feats = self.backbone(x)
+            else:
+                if self.training and sd_masks is None:
+                    sd_masks = sample_sd_masks(self.sd_probs(), x.shape[0],
+                                               generator, x.device)
+                feats = self.backbone(x, sd_masks if self.training
+                                      else None)
+            return self.head(feats, dropout_rate, dropout_masks, generator)
+
+    def sd_probs(self) -> dict:
+        """``{block name: drop probability}`` of the backbone's blocks with
+        stochastic depth (p > 0; the JAX package's block names), in
+        forward order; empty for ResNet and ViT."""
+        probs = getattr(self.backbone, "sd_probs", None)
+        return probs() if probs is not None else {}
 
     def head(self, feats, dropout_rate: Optional[float] = None,
              dropout_masks=None,

@@ -36,8 +36,10 @@ refused by name, as in the JAX package.  torchvision's own heads
 (``heads.*``, a single-Linear ``classifier.*``) are skipped.
 
 :func:`load_torch_checkpoint` and :func:`merge_pretrained` bring a
-torchvision-layout ResNet ``.pth`` (a pretrained backbone) into a port
-model; :func:`optax_state_to_optimizer_state` turns the JAX package's
+torchvision-layout ``.pth`` of any family (a pretrained backbone, or an
+``export_torch_pth`` file) into a port model; :func:`flax_param_name`
+maps a flax parameter path of any family to the port's name and layout,
+and :func:`optax_state_to_optimizer_state` turns the JAX package's
 optimizer state into the port's (``train/state.py::Optimizer.state_dict``),
 so both packages can start from one mid-training state.
 """
@@ -542,24 +544,41 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def merge_pretrained(model: torch.nn.Module,
                      state_dict: Mapping) -> torch.nn.Module:
-    """Overlay a ResNet state_dict (torchvision names, ``backbone.`` prefix
-    optional) onto ``model``'s weights in place; returns ``model``.
+    """Overlay a torchvision-layout state_dict of the model's family
+    (ResNet ``conv1``/``layer*``, ViT ``vit_*``, ConvNeXt ``convnext_*``,
+    EfficientNet ``efficientnet_*``; ``backbone.`` prefix optional) onto
+    ``model``'s weights in place; returns ``model``.
 
-    ``fc.*``, ``num_batches_tracked`` and head keys other than
-    ``classifier.{1,4}`` are skipped, so the head keeps its init when the
-    checkpoint is a torchvision backbone.  An unknown key raises KeyError,
-    a shape mismatch ValueError, before any weight is changed.
+    torchvision's own heads are skipped (ResNet's ``fc.*``, ViT's
+    ``heads.*``, the single-Linear ``classifier.*`` of EfficientNet and
+    ConvNeXt), as are ``num_batches_tracked``; an MLP head
+    ``classifier.{1,4}`` (an ``export_torch_pth`` file) is overlaid, and
+    ConvNeXt's ``classifier.0`` is its post-pool LayerNorm
+    (``backbone.ln``).  So the head keeps its init when the checkpoint is
+    a torchvision backbone.  An unknown key raises KeyError, a shape
+    mismatch ValueError, before any weight is changed.
     """
     own = model.state_dict()
+    convnext = _is_convnext_state_dict(state_dict)
+    # EfficientNet and ConvNeXt keep a torchvision classifier.1 / .2
+    # Linear; classifier.4 tells the MLP head apart from it
+    sequential_head = convnext or _is_efficientnet_state_dict(state_dict)
+    mlp_head = not sequential_head or _has_mlp_head(state_dict)
     updates = {}
     for key, value in state_dict.items():
-        name = key[len("backbone."):] if key.startswith("backbone.") else key
-        if name.startswith("fc.") or name.endswith("num_batches_tracked"):
+        name = _strip(key)
+        if name.startswith(("fc.", "heads.")) or name.endswith(
+                "num_batches_tracked"):
             continue
         m = re.fullmatch(r"classifier\.(\d)\.(weight|bias)", name)
-        if m and m.group(1) not in ("1", "4"):
-            continue
-        target = name if m else f"backbone.{name}"
+        if m and convnext and m.group(1) == "0":
+            target = f"backbone.ln.{m.group(2)}"
+        elif m:
+            if not (mlp_head and m.group(1) in ("1", "4")):
+                continue
+            target = name
+        else:
+            target = f"backbone.{name}"
         if target not in own:
             raise KeyError(f"pretrained key {key} is not in the model")
         want, got = tuple(own[target].shape), tuple(value.shape)
@@ -573,18 +592,101 @@ def merge_pretrained(model: torch.nn.Module,
     return model
 
 
-def flax_param_name(path) -> tuple:
-    """A flax ``params`` path (tuple of keys) -> (state_dict name, layout
-    function): conv kernels HWIO -> OIHW, Dense kernels transposed, BN
-    ``scale``/``bias`` -> ``weight``/``bias``."""
-    path = tuple(path)
-    if path[0] in ("head_dense1", "head_dense2"):
-        idx = "1" if path[0] == "head_dense1" else "4"
-        if path[1] == "kernel":
-            return f"classifier.{idx}.weight", lambda a: a.T
-        return f"classifier.{idx}.bias", lambda a: a
-    if path[0] != "backbone":
-        raise KeyError(f"unrecognized parameter path {path}")
+def _conv_layout(a):
+    return a.transpose(3, 2, 0, 1)
+
+
+def _same(a):
+    return a
+
+
+def _dense_layout(a):
+    return a.T
+
+
+def _leaf(prefix: str, field: str) -> tuple:
+    """(name, layout) of a conv/Dense/norm leaf of the module at
+    ``prefix``: a conv kernel (4-D, HWIO -> OIHW) or a Dense kernel
+    (transposed) -> ``weight``, a norm's ``scale`` -> ``weight``, a
+    ``bias`` as is."""
+    if field == "kernel":
+        return f"{prefix}.weight", _kernel_layout
+    return f"{prefix}.{'weight' if field == 'scale' else 'bias'}", _same
+
+
+def _kernel_layout(a):
+    return _conv_layout(a) if a.ndim == 4 else _dense_layout(a)
+
+
+_VIT_BLOCK = {"ln1": "ln_1", "ln2": "ln_2",
+              "attn_out": "self_attention.out_proj", "mlp_dense1": "mlp.0",
+              "mlp_dense2": "mlp.3"}
+# the rows of the packed in_proj that attn_q / attn_k / attn_v fill
+_VIT_QKV = ("attn_q", "attn_k", "attn_v")
+_CNX_BLOCK = {"dw_conv": "block.0", "ln": "block.2", "mlp_dense1": "block.3",
+              "mlp_dense2": "block.5"}
+
+
+def _vit_param_name(path) -> tuple:
+    mod = path[1]
+    if mod in ("class_token", "pos_embedding"):
+        return ("backbone.class_token" if mod == "class_token"
+                else "backbone.encoder.pos_embedding"), _same
+    if mod == "conv_proj":
+        return _leaf("backbone.conv_proj", path[2])
+    if mod == "ln":
+        return _leaf("backbone.encoder.ln", path[2])
+    i = re.fullmatch(r"block(\d+)", mod).group(1)
+    block = f"backbone.encoder.layers.encoder_layer_{i}"
+    sub, field = path[2], path[3]
+    if sub in _VIT_QKV:
+        # one third of the rows of the packed projection
+        # (flax_tree_to_named joins them in q, k, v order)
+        leaf = "in_proj_weight" if field == "kernel" else "in_proj_bias"
+        return f"{block}.self_attention.{leaf}", (
+            _dense_layout if field == "kernel" else _same)
+    return _leaf(f"{block}.{_VIT_BLOCK[sub]}", field)
+
+
+def _efficientnet_param_name(path) -> tuple:
+    mod = path[1]
+    m = re.fullmatch(r"(stem|top)_(conv|bn)", mod)
+    if m:
+        idx = 0 if m.group(1) == "stem" else 8
+        sub = "0" if m.group(2) == "conv" else "1"
+        return _leaf(f"backbone.features.{idx}.{sub}", path[2])
+    s, j = _stage_block(mod)
+    roles = _EFF_ROLES_NO_EXPAND if s == 1 else _EFF_ROLES_EXPAND
+    idx_of = {v: k for k, v in roles.items()}
+    base = f"backbone.features.{s}.{j}.block"
+    sub, field = path[2], path[3]
+    if sub.startswith("se_"):
+        return _leaf(f"{base}.{idx_of['se']}.{sub[len('se_'):]}", field)
+    role, kind = sub.rsplit("_", 1)
+    return _leaf(f"{base}.{idx_of[role]}.{'0' if kind == 'conv' else '1'}",
+                 field)
+
+
+def _convnext_param_name(path) -> tuple:
+    mod = path[1]
+    if mod in ("stem_conv", "stem_ln"):
+        sub = "0" if mod == "stem_conv" else "1"
+        return _leaf(f"backbone.features.0.{sub}", path[2])
+    if mod == "ln":
+        return _leaf("backbone.ln", path[2])
+    m = re.fullmatch(r"stage(\d+)_downsample_(ln|conv)", mod)
+    if m:
+        s = int(m.group(1))
+        return _leaf(f"backbone.features.{2 * s - 2}."
+                     f"{'0' if m.group(2) == 'ln' else '1'}", path[2])
+    s, j = _stage_block(mod)
+    base = f"backbone.features.{2 * s - 1}.{j}"
+    if path[2] == "layer_scale":
+        return f"{base}.layer_scale", lambda a: a.reshape(-1, 1, 1)
+    return _leaf(f"{base}.{_CNX_BLOCK[path[2]]}", path[3])
+
+
+def _resnet_param_name(path) -> tuple:
     if len(path) == 3:
         prefix, (mod, field) = "backbone", path[1:]
     else:
@@ -594,9 +696,32 @@ def flax_param_name(path) -> tuple:
         mod = {"downsample_conv": "downsample.0",
                "downsample_bn": "downsample.1"}.get(mod, mod)
     if field == "kernel":
-        return f"{prefix}.{mod}.weight", lambda a: a.transpose(3, 2, 0, 1)
+        return f"{prefix}.{mod}.weight", _conv_layout
     return f"{prefix}.{mod}.{'weight' if field == 'scale' else 'bias'}", \
-        lambda a: a
+        _same
+
+
+_PARAM_NAMES = {"resnet": _resnet_param_name, "vit": _vit_param_name,
+                "efficientnet": _efficientnet_param_name,
+                "convnext": _convnext_param_name}
+
+
+def flax_param_name(path, family: str = "resnet") -> tuple:
+    """A flax ``params`` path (tuple of keys) of a ``family`` classifier ->
+    (state_dict name, layout function): conv kernels HWIO -> OIHW, Dense
+    kernels transposed, norms' ``scale``/``bias`` -> ``weight``/``bias``,
+    ConvNeXt's ``layer_scale`` (C,) -> (C, 1, 1).  ViT's ``attn_q``,
+    ``attn_k`` and ``attn_v`` each name the packed ``in_proj_*`` (their
+    rows in that order; :func:`flax_tree_to_named` joins them)."""
+    path = tuple(path)
+    if path[0] in ("head_dense1", "head_dense2"):
+        idx = "1" if path[0] == "head_dense1" else "4"
+        if path[1] == "kernel":
+            return f"classifier.{idx}.weight", _dense_layout
+        return f"classifier.{idx}.bias", _same
+    if path[0] != "backbone" or family not in _PARAM_NAMES:
+        raise KeyError(f"unrecognized parameter path {path}")
+    return _PARAM_NAMES[family](path)
 
 
 def _flax_leaves(tree: Mapping, prefix=()):
@@ -610,12 +735,36 @@ def _flax_leaves(tree: Mapping, prefix=()):
             yield prefix + (key,), np.asarray(value)
 
 
-def _named(tree: Mapping) -> Dict[str, torch.Tensor]:
-    out = {}
+def _flax_family(tree: Mapping) -> str:
+    """The family of a flax ``params``-shaped tree (parameters, or an
+    optimizer's moments over them), read off its backbone's keys."""
+    backbone = tree.get("backbone", {})
+    if "class_token" in backbone:
+        return "vit"
+    if "stem_ln" in backbone:
+        return "convnext"
+    if "stem_conv" in backbone:
+        return "efficientnet"
+    return "resnet"
+
+
+def flax_tree_to_named(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``params``-shaped tree -> {state_dict name: f32 CPU tensor} in
+    the port's layout (:func:`flax_param_name`); ViT's q, k and v rows
+    joined into the packed ``in_proj_*``.  Leaves that are no arrays
+    (optax's ``MaskedNode``) are skipped."""
+    family = _flax_family(tree)
+    out, packed = {}, {}
     for path, arr in _flax_leaves(tree):
-        name, layout = flax_param_name(path)
-        out[name] = torch.from_numpy(
-            np.array(layout(arr.astype(np.float32)), np.float32))
+        name, layout = flax_param_name(path, family)
+        a = np.array(layout(arr.astype(np.float32)), np.float32)
+        if family == "vit" and path[-2] in _VIT_QKV:
+            packed.setdefault(name, {})[_VIT_QKV.index(path[-2])] = a
+        else:
+            out[name] = torch.from_numpy(a)
+    for name, parts in packed.items():
+        out[name] = torch.from_numpy(np.concatenate(
+            [parts[j] for j in range(3)], 0))
     return out
 
 
@@ -651,11 +800,11 @@ def optax_state_to_optimizer_state(opt_state) -> dict:
 
     walk(opt_state)
     kinds = ("trace",) if "trace" in found else ("mu", "nu")
-    moments = {k: _named(found[k]) for k in kinds}
+    moments = {k: flax_tree_to_named(found[k]) for k in kinds}
     ema = None
     if "ema" in found:
         trainable = set(moments[kinds[0]])
-        ema = {n: t for n, t in _named(found["ema"]).items()
+        ema = {n: t for n, t in flax_tree_to_named(found["ema"]).items()
                if n in trainable}
     hp = found["hyperparams"]
     return {"count": found["count"],

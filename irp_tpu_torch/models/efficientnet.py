@@ -1,5 +1,4 @@
-"""EfficientNet B0-B7 (the JAX package's ``models/efficientnet.py``), eval
-form.
+"""EfficientNet B0-B7 (the JAX package's ``models/efficientnet.py``).
 
 torchvision's ``efficientnet`` architecture (MBConv: 1x1 expand ->
 depthwise kxk -> squeeze-excitation -> 1x1 project, SiLU, channel and
@@ -15,9 +14,22 @@ depth scaling by ``_make_divisible`` and ceil, the B5-B7 BatchNorm eps of
 
 Convs compute in the compute dtype from f32 params; BatchNorm in f32 with
 its output cast back (``models/resnet.py::BatchNorm2d``).  The SE squeeze
-is a mean in f32, cast to the compute dtype.  Only the eval forward is
-here: stochastic depth, whose per-sample draws must be arguments, comes
-with the train-mode forward (A13b).
+is a mean in f32, cast to the compute dtype.
+
+Training, as the JAX package's ``EfficientNet.__call__(train=True)``:
+
+- stochastic depth on every residual MBConv, frozen stages included, at
+  ``p * block_id / total_blocks`` (block_id counts every block), with
+  the per-sample keep masks given as arguments (``sd_probs`` names the
+  blocks; ``models/layers.py::sample_sd_masks`` draws them);
+- ``frozen_prefix`` leading stages (and the stem, when it is > 0) run
+  without autograd: the JAX package's one ``stop_gradient`` cut;
+- under ``bn_stats_mode='trainable_only'`` the BN of the stem and of the
+  frozen stages stays in inference form (``BatchNorm2d.frozen``), the top
+  BN too when ``top_frozen``; under 'all' every BN collects batch
+  statistics;
+- ``remat_blocks`` recomputes each trainable block in the backward
+  (``models/resnet.py::remat_call``).
 """
 
 from __future__ import annotations
@@ -29,8 +41,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from irp_tpu_torch.models.layers import (Conv2d, at_least_f32, flax_init_,
-                                         global_pool)
-from irp_tpu_torch.models.resnet import BatchNorm2d
+                                         global_pool, stochastic_depth)
+from irp_tpu_torch.models.resnet import BatchNorm2d, frozen_scope, remat_call
 
 # torchvision _efficientnet_conf base table (expand_ratio, kernel, stride,
 # input_channels, out_channels, num_layers), scaled per variant by
@@ -157,11 +169,13 @@ class SqueezeExcitation(nn.Module):
 
 class MBConv(nn.Module):
     """Inverted residual with squeeze-excitation; the residual when the
-    stride is 1 and the widths match."""
+    stride is 1 and the widths match, its branch dropped per sample where
+    ``sd_mask`` (a (B,) bool keep mask) is False."""
 
     def __init__(self, in_ch, out_ch, expand_ratio, kernel, stride, dtype,
-                 eps, momentum):
+                 eps, momentum, sd_prob: float = 0.0):
         super().__init__()
+        self.sd_prob = sd_prob
         expanded = (make_divisible(in_ch * expand_ratio)
                     if expand_ratio != 1 else in_ch)
         layers = []
@@ -177,44 +191,96 @@ class MBConv(nn.Module):
         self.block = nn.Sequential(*layers)
         self.use_res = stride == 1 and in_ch == out_ch
 
-    def forward(self, x):
+    def forward(self, x, sd_mask=None):
         y = self.block(x)
-        return y + x if self.use_res else y
+        if not self.use_res:
+            return y
+        if sd_mask is not None:
+            y = stochastic_depth(y, sd_mask, 1.0 - self.sd_prob)
+        return y + x
 
 
 class EfficientNet(nn.Module):
     """Headless EfficientNet returning globally pooled features (B, C);
-    input NCHW."""
+    input NCHW.  ``frozen_prefix`` (0-7) leading MBConv stages are frozen
+    (the stem with them when > 0); ``top_frozen`` sets the top BN's form
+    under 'trainable_only'."""
 
     def __init__(self, width_mult=1.0, depth_mult=1.0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, frozen_prefix: int = 0,
+                 top_frozen: bool = False,
+                 bn_stats_mode: str = "trainable_only",
+                 stochastic_depth_prob: float = 0.0,
+                 remat_blocks: bool = False):
         super().__init__()
+        if bn_stats_mode not in ("trainable_only", "all"):
+            raise ValueError(f"unknown bn_stats_mode {bn_stats_mode!r}")
         setting = scaled_setting(width_mult, depth_mult)
         eps, flax_momentum = bn_constants(width_mult, depth_mult)
         momentum = round(1.0 - flax_momentum, 6)
         self.compute_dtype = dtype
         self.num_features = top_channels(width_mult)
+        self.frozen_prefix = frozen_prefix
+        self.remat_blocks = remat_blocks
+        total_blocks = sum(s[5] for s in setting)
         features = [_conv_bn(3, setting[0][3], 3, 2, 1, dtype, eps, momentum,
                              True)]
+        block_id = 0
         for expand, kernel, stride, in_ch, out_ch, layers in setting:
-            features.append(nn.Sequential(*[
-                MBConv(in_ch if j == 0 else out_ch, out_ch, expand, kernel,
-                       stride if j == 0 else 1, dtype, eps, momentum)
-                for j in range(layers)]))
+            blocks = []
+            for j in range(layers):
+                blocks.append(MBConv(
+                    in_ch if j == 0 else out_ch, out_ch, expand, kernel,
+                    stride if j == 0 else 1, dtype, eps, momentum,
+                    stochastic_depth_prob * block_id / total_blocks))
+                block_id += 1
+            features.append(nn.Sequential(*blocks))
         features.append(_conv_bn(setting[-1][4], self.num_features, 1, 1, 1,
                                  dtype, eps, momentum, True))
         self.features = nn.Sequential(*features)
+        # which BNs stay in inference form under .train(): the stem with
+        # any frozen stage, the frozen stages, the top when top_frozen
+        trainable_only = bn_stats_mode == "trainable_only"
+        frozen_parts = [frozen_prefix > 0] + [
+            s <= frozen_prefix for s in range(1, len(setting) + 1)] + [
+            top_frozen]
+        for part, frozen in zip(self.features, frozen_parts):
+            for mod in part.modules():
+                if isinstance(mod, BatchNorm2d):
+                    mod.frozen = trainable_only and frozen
+
+    def sd_probs(self) -> dict:
+        """``{'stage<s>_block<j>': p}`` of the blocks whose residual branch
+        stochastic depth may drop (p > 0), in forward order."""
+        return {f"stage{s}_block{j}": blk.sd_prob
+                for s, stage in enumerate(self.features[1:-1], 1)
+                for j, blk in enumerate(stage)
+                if blk.use_res and blk.sd_prob > 0}
 
     def init_weights(self, generator=None) -> None:
         """flax's initializers (``models/layers.py::flax_init_``)."""
         flax_init_(self, generator)
 
-    def forward_spatial(self, x):
-        """The final conv's map (B, C, h, w) before the global pool."""
-        return self.features(x.to(self.compute_dtype))
+    def forward_spatial(self, x, sd_masks=None):
+        """The final conv's map (B, C, h, w) before the global pool;
+        ``sd_masks`` (block name -> (B,) keep mask) drop residual branches
+        (train mode)."""
+        masks = sd_masks or {}
+        stem, *stages, top = self.features
+        remat = self.remat_blocks and torch.is_grad_enabled()
+        with frozen_scope(self.frozen_prefix > 0):
+            x = stem(x.to(self.compute_dtype))
+        for s, stage in enumerate(stages, 1):
+            frozen = s <= self.frozen_prefix
+            with frozen_scope(frozen):
+                for j, blk in enumerate(stage):
+                    mask = masks.get(f"stage{s}_block{j}")
+                    x = (remat_call(blk, x, mask) if remat and not frozen
+                         else blk(x, mask))
+        return top(x)
 
     def pool(self, spatial):
         return global_pool(spatial, self.compute_dtype)
 
-    def forward(self, x):
-        return self.pool(self.forward_spatial(x))
+    def forward(self, x, sd_masks=None):
+        return self.pool(self.forward_spatial(x, sd_masks))

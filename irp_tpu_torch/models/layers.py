@@ -110,3 +110,27 @@ def flax_init_(module: nn.Module, generator=None) -> None:
                     mod.bias.zero_()
         elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
             mod.reset_parameters()
+
+
+def stochastic_depth(y: torch.Tensor, mask: torch.Tensor,
+                     keep: float) -> torch.Tensor:
+    """Row-mode stochastic depth (torchvision's ``StochasticDepth``, the
+    JAX package's ``_stochastic_depth``): ``where(mask[:, None, None,
+    None], y / keep, 0)`` for a (B,) bool ``mask`` of the samples whose
+    residual branch survives, ``keep`` rounded to y's dtype first, as
+    ``y / jnp.asarray(keep, y.dtype)`` does.  ``y`` is 4-D (NCHW or
+    NHWC: the batch axis leads either way)."""
+    divisor = float(torch.tensor(keep).to(y.dtype))
+    return torch.where(mask.reshape(-1, 1, 1, 1), y / divisor,
+                       torch.zeros_like(y))
+
+
+def sample_sd_masks(probs, batch: int, generator=None,
+                    device=None) -> dict:
+    """Each block's (B,) keep mask, Bernoulli(1 - p) per sample, for the
+    ``{block name: drop probability}`` of a backbone
+    (``sd_probs()``), drawn in block order from ``generator`` (a
+    generator on ``device``; the default generator when None)."""
+    return {name: torch.rand(batch, generator=generator,
+                             device=device) < 1.0 - p
+            for name, p in probs.items()}

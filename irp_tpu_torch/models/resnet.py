@@ -113,6 +113,25 @@ def _recompute_contexts(module: nn.Module):
     return contextlib.nullcontext(), _stats_held(module)
 
 
+def remat_call(block: nn.Module, *args):
+    """``block(*args)`` with its activations recomputed in the backward
+    instead of stored (``torch.utils.checkpoint``), its BN layers'
+    running statistics held during the recompute: the JAX package's
+    ``nn.remat`` of a trainable block."""
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False,
+        context_fn=functools.partial(_recompute_contexts, block))
+
+
+def frozen_scope(frozen: bool):
+    """The scope a frozen part of a backbone runs in: no autograd (the
+    counterpart of the JAX package's ``stop_gradient`` cut after the last
+    frozen stage), or as is."""
+    if frozen and torch.is_grad_enabled():
+        return torch.no_grad()
+    return contextlib.nullcontext()
+
+
 class BasicBlock(nn.Module):
     """Two 3x3 convs (ResNet-18/34)."""
 
@@ -329,10 +348,7 @@ class ResNet(nn.Module):
         for name in STAGE_NAMES[self.frozen_prefix:]:
             for block in getattr(self, name):
                 if remat:
-                    x = torch.utils.checkpoint.checkpoint(
-                        block, x, use_reentrant=False,
-                        context_fn=functools.partial(_recompute_contexts,
-                                                     block))
+                    x = remat_call(block, x)
                 else:
                     x = block(x)
         return x

@@ -1,4 +1,4 @@
-"""Vision Transformer (the JAX package's ``models/vit.py``), eval form.
+"""Vision Transformer (the JAX package's ``models/vit.py``).
 
 torchvision's ``vision_transformer`` architecture (pre-LN encoder blocks,
 LayerNorm eps 1e-6, exact-erf GELU, CLS-token pooling) under torchvision's
@@ -22,9 +22,13 @@ their softmax in f32, cast back before the product with V.
 ``prefix_tokens`` / ``suffix_feature`` split the forward around the LAST
 encoder block: the Grad-CAM surface (``explain.py``) differentiates the
 last block, the final LayerNorm and the head with respect to the tokens
-entering that block.  Only the eval forward is here; the train-mode
-forward (stochastic depth is not a ViT feature, but freezing and remat
-are) comes with A13b.
+entering that block; neither applies the cut below.
+
+Training: the train-mode forward is the eval one (no dropout inside the
+encoder, no BatchNorm, no stochastic depth).  The embedding and the first
+``frozen_prefix`` blocks run without autograd (the JAX package's one
+``stop_gradient`` cut after block ``frozen_prefix - 1``), and
+``remat_blocks`` recomputes each trainable block in the backward.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 from irp_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear,
                                          flax_init_, global_pool,
                                          lecun_normal_, nhwc)
+from irp_tpu_torch.models.resnet import frozen_scope, remat_call
 
 # torchvision.models.vision_transformer's published sizes.  vit_h_14 is
 # the one family member whose head_dim is not 64 (1280/16 = 80), so it
@@ -155,8 +160,11 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, patch_size=16, embed_dim=768, num_layers=12,
                  num_heads=12, mlp_dim=3072, image_size=224,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, frozen_prefix: int = 0,
+                 remat_blocks: bool = False):
         super().__init__()
+        self.frozen_prefix = frozen_prefix
+        self.remat_blocks = remat_blocks
         self.patch_size = patch_size
         self.image_size = image_size
         self.compute_dtype = dtype
@@ -198,13 +206,31 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1)
         return x + self.encoder.pos_embedding.to(x.dtype)
 
-    def forward(self, x):
-        return self.suffix_feature(self.prefix_tokens(x))
+    def sd_probs(self) -> dict:
+        """No block of a ViT has stochastic depth."""
+        return {}
+
+    def encode(self, x):
+        """Embed and every block, the embedding and the first
+        ``frozen_prefix`` blocks without autograd: (B, S, E) before the
+        final LayerNorm."""
+        remat = self.remat_blocks and torch.is_grad_enabled()
+        with frozen_scope(self.frozen_prefix > 0):
+            x = self.embed(x)
+        for i, blk in enumerate(self.encoder.layers):
+            frozen = i < self.frozen_prefix
+            with frozen_scope(frozen):
+                x = remat_call(blk, x) if remat and not frozen else blk(x)
+        return x
+
+    def forward(self, x, sd_masks=None):
+        del sd_masks  # no stochastic depth in a ViT
+        return self.encoder.ln(self.encode(x)[:, 0])
 
     def forward_spatial(self, x):
         """The post-LN patch-token grid (B, E, gh, gw) (the CLS token is
         the classification feature, not a pool of this grid)."""
-        x = self.encoder.ln(self.encoder.layers(self.embed(x)))[:, 1:]
+        x = self.encoder.ln(self.encode(x))[:, 1:]
         b, s, e = x.shape
         g = math.isqrt(s)
         return x.reshape(b, g, g, e).permute(0, 3, 1, 2)

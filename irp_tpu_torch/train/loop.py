@@ -50,12 +50,14 @@ def _result(logits: np.ndarray, labels: np.ndarray,
 
 
 def set_mode(model, training: bool) -> None:
-    """Train or eval mode, then the frozen identity blocks' BN folded once
-    for the fused kernel (``ResNet.cache_folded_weights``): a mode switch
-    drops that cache, and the frozen weights do not change until the next
-    load."""
+    """Train or eval mode, then, for a ResNet, the frozen identity blocks'
+    BN folded once for the fused kernel (``ResNet.cache_folded_weights``):
+    a mode switch drops that cache, and the frozen weights do not change
+    until the next load.  The other families have no fused blocks."""
     model.train(training)
-    model.backbone.cache_folded_weights()
+    cache = getattr(model.backbone, "cache_folded_weights", None)
+    if cache is not None:
+        cache()
 
 
 def train_epoch(state, run_step: Callable, batches: Iterator,

@@ -44,11 +44,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS, SGD_MOMENTUM = 0.9, 0.999, 1e-8, 0.9
 def trainable_mask(model: torch.nn.Module,
                    model_cfg: ModelConfig) -> Dict[str, bool]:
     """Parameter name -> whether it trains: the head always, backbone
-    stages per ``trainable_stages``, nothing of the backbone when
-    ``head_only``."""
+    stages per ``trainable_stages`` by the family's stage names
+    (``models/classifier.py::backbone_stage``), nothing of the backbone
+    when ``head_only``."""
     stages = () if model_cfg.head_only else resolve_trainable_stages(
         model_cfg)
-    return {name: is_trainable(name, stages)
+    return {name: is_trainable(name, stages, model_cfg.family)
             for name, _ in model.named_parameters()}
 
 
@@ -213,7 +214,9 @@ def set_opt_hyperparams(opt: Optimizer, learning_rate: float,
 
 def _updating_stats(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The running buffers of every BatchNorm that updates them in train
-    mode, by state_dict name."""
+    mode, by state_dict name (ResNet's and EfficientNet's BNs outside the
+    frozen stages, or all of them under ``bn_stats_mode='all'``; none for
+    ViT and ConvNeXt)."""
     out = {}
     for mname, mod in model.named_modules():
         if isinstance(mod, BatchNorm2d) and not mod.frozen:
@@ -230,9 +233,12 @@ class TrainState:
         self.optimizer = optimizer
         self.ema_decay = optimizer.ema_decay
         self.ema_batch_stats = None
-        if self.ema_decay > 0:
-            self.ema_batch_stats = {n: t.detach().clone() for n, t in
-                                    _updating_stats(model).items()}
+        stats = _updating_stats(model)
+        if self.ema_decay > 0 and stats:
+            # none to track where no BatchNorm collects statistics (ViT,
+            # ConvNeXt, a frozen EfficientNet or ResNet)
+            self.ema_batch_stats = {n: t.detach().clone()
+                                    for n, t in stats.items()}
 
     @property
     def step(self) -> int:

@@ -6,8 +6,8 @@ normalization (``ops/preprocess.py``), optional mixup/CutMix
 autograd, its identity bottlenecks through K1 on the card under
 ``fused_frozen_blocks`` 'auto' or 'on'), the class-weighted loss, the
 backward and the optimizer update.  Its random draws come from a device
-generator (per-image augmentation, dropout masks) and a host numpy
-generator (the per-step mixing scalars).  An epoch is a Python loop over
+generator (per-image augmentation, stochastic-depth and dropout masks)
+and a host numpy generator (the per-step mixing scalars).  An epoch is a Python loop over
 the sampler's window offsets; metrics stay on the device until it ends.
 
 Eval steps crop and normalize through K2 on the card
@@ -88,23 +88,26 @@ def _correct(logits, labels_a, labels_b, lam):
 def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
                    class_weights=None, labels_b=None, lam=None,
                    generator: Optional[torch.Generator] = None,
-                   dropout_masks=None):
+                   dropout_masks=None, sd_masks=None):
     """Forward and backward of one batch in train mode: the trainable
     parameters' grads accumulate into ``.grad``.  Returns the loss and the
     count of correct predictions, as device tensors.
+
+    ``dropout_masks`` (the head's pair) and ``sd_masks`` (block name ->
+    (B,) keep mask) are given draws, else drawn from ``generator``.
 
     With ``cfg.grad_accum`` = k > 1 the batch runs as k sequential
     micro-batches, each loss over the full batch's denominator (the batch
     size, or the class-weight sum over the whole batch), so the summed
     grads are the full batch's; BatchNorm layers that collect statistics
-    see the micro-batches' in turn.  Dropout masks are drawn per
-    micro-batch (``dropout_masks``, for a parity test, needs k = 1).
+    see the micro-batches' in turn.  The masks are drawn per micro-batch;
+    given ones are then sequences of k, one per micro-batch.
     """
     k = int(cfg.grad_accum)
     b = x_nhwc.shape[0]
     if k <= 1:
         logits = model(_nchw(x_nhwc), cfg.dropout_rate, dropout_masks,
-                       generator)
+                       generator, sd_masks)
         loss = _loss(logits, labels, labels_b, lam, class_weights,
                      cfg.label_smoothing)
         with model.precision_scope(x_nhwc):
@@ -114,8 +117,10 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
     if b % k:
         raise ValueError(f"grad_accum_steps={k} needs the batch ({b}) "
                          f"divisible by it")
-    if dropout_masks is not None:
-        raise ValueError("dropout_masks need grad_accum_steps=1")
+    for given in (dropout_masks, sd_masks):
+        if given is not None and len(given) != k:
+            raise ValueError(f"grad_accum_steps={k} takes one set of masks "
+                             f"per micro-batch, got {len(given)}")
     if class_weights is None:
         denom = float(b)
     else:
@@ -126,7 +131,9 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
     for c in range(k):
         sl = slice(c * blk, (c + 1) * blk)
         lb = None if labels_b is None else labels_b[sl]
-        logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate, None, generator)
+        logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate,
+                       None if dropout_masks is None else dropout_masks[c],
+                       generator, None if sd_masks is None else sd_masks[c])
         loss = _loss(logits, labels[sl], lb, lam, class_weights,
                      cfg.label_smoothing, denom)
         with model.precision_scope(x_nhwc):
@@ -141,12 +148,14 @@ def train_step(state, images_u8, labels, cfg: StepConfig,
                generator: Optional[torch.Generator] = None,
                mix_rng: Optional[np.random.Generator] = None,
                aug_draws: Optional[AugmentDraws] = None,
-               mix_draws: Optional[MixDraws] = None, dropout_masks=None):
+               mix_draws: Optional[MixDraws] = None, dropout_masks=None,
+               sd_masks=None):
     """One optimizer step on a uint8 batch (B, H, W, 3) on the device.
 
-    Draws come from ``generator`` (a generator on the batch's device) and
-    ``mix_rng`` unless given.  Returns {'loss', 'accuracy'} as device
-    scalars."""
+    Draws (augmentation, mixing, the head's dropout masks and the
+    backbone's stochastic-depth masks) come from ``generator`` (a
+    generator on the batch's device) and ``mix_rng`` unless given.
+    Returns {'loss', 'accuracy'} as device scalars."""
     b, h, w = images_u8.shape[:3]
     if aug_draws is None:
         aug_draws = sample_augment_draws(generator, b, h, w, cfg.intensity)
@@ -158,7 +167,8 @@ def train_step(state, images_u8, labels, cfg: StepConfig,
                                    mix_draws)
     state.optimizer.zero_grad()
     loss, correct = loss_and_grads(state.model, x, y_a, cfg, class_weights,
-                                   y_b, lam, generator, dropout_masks)
+                                   y_b, lam, generator, dropout_masks,
+                                   sd_masks)
     state.apply_gradients()
     return {"loss": loss, "accuracy": correct.float() / b}
 

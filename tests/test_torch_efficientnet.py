@@ -115,7 +115,7 @@ def test_freezing_matches_jax(stages, head_only):
                        head_only)
 
 
-def test_fused_on_refused_and_train_mode_names_a13b():
+def test_fused_on_refused_and_train_mode_runs():
     fam.check_refusals(FAMILY)
 
 
@@ -134,12 +134,8 @@ def test_healthz_and_metrics_match_jax():
 
 
 @pytest.mark.parametrize("cli", ["hyperopt_cli", "final_cli"])
-def test_training_clis_refuse_the_family_naming_a13b(cli, tmp_path):
-    import importlib
-
-    main = importlib.import_module(f"irp_tpu_torch.cli.{cli}").main
-    with pytest.raises(NotImplementedError, match="A13b"):
-        main(["--data-dir", str(tmp_path), "--cpu", "--family", FAMILY])
+def test_training_clis_train_the_family(cli, tmp_path, monkeypatch):
+    fam.check_training_cli(FAMILY, cli, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("variant", ["b0", "b7"])

@@ -255,11 +255,56 @@ def test_the_cli_without_shards_returns_1(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--parallel-workers", "2"], "A14"),
-    (["--family", "vit"], "A13"),
 ])
 def test_the_cli_refuses_what_is_not_ported(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         hyperopt_cli.main(["--data-dir", str(tmp_path), "--cpu", *argv])
+
+
+def test_the_cli_sweeps_another_family(data, monkeypatch):
+    """--family vit --vit-variant b_16 (laid over ViT-B/16's recipe at a
+    small width: 2 blocks of 32, patch 16 at 64 px) sweeps one quick trial
+    over two folds to COMPLETE, the ViT family in its tracking run."""
+    import dataclasses
+
+    from irp_tpu_torch.cli import model_args
+
+    root, shards, _, _ = data
+    real = model_args.model_config_for_family
+    seen = []
+
+    def small(family, **kw):
+        cfg = dataclasses.replace(real(family, **kw), embed_dim=32,
+                                  num_layers=2, mlp_dim=64, num_heads=2,
+                                  hidden_dim=16)
+        seen.append(cfg)
+        return cfg
+
+    monkeypatch.setattr(model_args, "model_config_for_family", small)
+    fitted = []
+    real_fit = objective.fit
+
+    def fit(*a, **kw):
+        fitted.append(a[3])  # the trial's ModelConfig
+        return real_fit(*a, **kw)
+
+    monkeypatch.setattr(objective, "fit", fit)
+    uri = str(root / "mlruns_vit")
+    tracking.set_tracking_uri(uri)
+    db = str(root / "vit.db")
+    assert hyperopt_cli.main([
+        "--data-dir", os.path.dirname(shards[0]), "--cpu", "--quick",
+        "--n-trials", "1", "--k-folds", "2", "--storage", db,
+        "--study-name", "vit", "--cache-dir", str(root / "cache"),
+        "--family", "vit", "--image-size", str(SIZE), "--seed", "0"]) == 0
+    assert [c.family for c in seen] == ["vit"]
+    assert seen[0].trainable_stages == ("layer4",)  # ViT's default recipe
+    # each fold-fit trains the CLI's family and variant, not a ResNet
+    assert len(fitted) == 2
+    assert all(c.family == "vit" and c.patch_size == 16
+               and c.embed_dim == 32 for c in fitted)
+    [trial] = runner.create_study("vit", db).get_trials()
+    assert trial.state == "COMPLETE" and np.isfinite(trial.value)
 
 
 def test_the_runner_refuses_parallel_workers(data):

@@ -200,18 +200,38 @@ def test_frozen_bn_stays_in_inference_form_under_train():
 
 
 @pytest.mark.parametrize("family", ["vit", "efficientnet", "convnext"])
-def test_unported_families_name_the_roadmap(family):
-    """The other families serve (tests/test_torch_{vit,efficientnet,
-    convnext}.py); their train-mode forward is not ported yet and names
-    its ROADMAP item, A13b."""
+def test_families_train_mode_forward_and_backward(family):
+    """The other families train: in train mode the forward draws its
+    stochastic-depth and dropout masks from the generator, reproducibly,
+    and the backward reaches exactly the trainable parameters (the family's
+    default stages and the head); the eval form is unchanged by it."""
     small = {"vit": dict(patch_size=8, embed_dim=64, num_layers=2,
                          mlp_dim=128),
              "efficientnet": dict(width_mult=0.5, depth_mult=0.5),
              "convnext": dict(convnext_dims=(8, 16, 24, 32),
                               convnext_depths=(1, 1, 1, 1))}[family]
     model = Classifier(ModelConfig(family=family, image_size=32,
-                                   compute_dtype="float32", **small))
-    x = torch.zeros(2, 3, 32, 32)
-    assert model.eval()(x).shape == (2, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A13b"):
-        model.train()(x)
+                                   compute_dtype="float32",
+                                   bn_stats_mode="all", **small))
+    model.init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        eval_logits = model.eval()(x)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        logits = model(x, generator=torch.Generator().manual_seed(2))
+        runs.append(logits.detach())
+    assert runs[0].shape == (2, 10) and torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], eval_logits)  # masks and batch stats
+    logits.sum().backward()
+    grads = {n for n, p in model.named_parameters() if p.grad is not None}
+    assert grads == {n for n, p in model.named_parameters()
+                     if p.requires_grad}
+    assert any(n.startswith("classifier.") for n in grads)
+    assert any(n.startswith("backbone.") for n in grads)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        assert torch.equal(model.eval()(x), eval_logits)

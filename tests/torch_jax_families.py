@@ -322,7 +322,10 @@ def check_infer_config(family: str, jax_tree, image_size: int = SIZE):
 
 def check_refusals(family: str) -> None:
     """'on' refused with the JAX package's message; 'auto' builds unfused;
-    the train-mode forward names A13b."""
+    the train-mode forward runs (logits and a backward into the trainable
+    stages), and switching back to ``.eval()`` gives the eval form's
+    logits unchanged (once the BN statistics the train forward moved are
+    put back)."""
     import pytest
 
     from irp_tpu.models.classifier import init_classifier as jax_init
@@ -336,9 +339,19 @@ def check_refusals(family: str) -> None:
     model = port_model(dataclasses.replace(CONFIGS[family],
                                            fused_frozen_blocks="auto"),
                        jax_variables(family))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        model.train()(nchw(images(5)))
-    assert model.eval()(nchw(images(5))).shape == (3, 5)
+    x = nchw(images(5))
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    with torch.no_grad():
+        before = model(x)
+    logits = model.train()(x, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (3, 5) and torch.isfinite(logits).all()
+    logits.sum().backward()
+    assert all(p.grad is not None for p in model.parameters()
+               if p.requires_grad)
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            b.copy_(buffers[n])
+        assert torch.equal(model.eval()(x), before)
 
 
 @functools.lru_cache(maxsize=None)
@@ -531,3 +544,96 @@ def check_model_config_for_family(family: str, variant: str) -> None:
           "image_size": 96}
     assert dataclasses.asdict(model_config_for_family(family, **kw)) == \
         dataclasses.asdict(jax_mcf(family, **kw))
+
+
+# the small configs' widths, laid under a CLI's family config
+_WIDTHS = {"vit": ("patch_size", "embed_dim", "num_layers", "mlp_dim",
+                   "num_heads", "hidden_dim"),
+           "efficientnet": ("width_mult", "depth_mult", "hidden_dim"),
+           "convnext": ("convnext_dims", "convnext_depths", "hidden_dim")}
+
+
+def check_training_cli(family: str, cli: str, tmp_path, monkeypatch):
+    """``hyperopt_cli --family`` (--quick, one trial, two folds, adamw on
+    the cosine schedule with label smoothing) on tests/synth.py shards at
+    32 px on the CPU, then, for 'final_cli', ``final_cli --family`` on
+    its study (EMA, two micro-batches, mixup and CutMix): every fit gets
+    the family's config and the recipe flags; the trial COMPLETE with a
+    finite value and ``recommended_epochs`` in its tracking run; the
+    final ``.npz`` served by ``load_predictor`` as the family.  The
+    variant's config keeps its recipe (stochastic depth, dropout,
+    trainable stages) at the small configs' widths."""
+    import os
+
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.cli import final_cli, hyperopt_cli, model_args
+    from irp_tpu_torch.hyperopt import objective, runner
+    from irp_tpu_torch.infer import load_predictor
+    from irp_tpu_torch.train import final
+
+    from tests.synth import make_synthetic_shards
+
+    small = CONFIGS[family]
+    widths = {k: getattr(small, k) for k in _WIDTHS[family]}
+    real = model_args.model_config_for_family
+
+    def tiny(fam_, **kw):
+        return dataclasses.replace(real(fam_, **kw), **widths)
+
+    monkeypatch.setattr(model_args, "model_config_for_family", tiny)
+    fits = []
+
+    def recorded(module):
+        real_fit = module.fit
+
+        def fit(*a, **kw):
+            fits.append((a[3], a[4]))  # model_cfg, train_cfg
+            return real_fit(*a, **kw)
+        monkeypatch.setattr(module, "fit", fit)
+
+    recorded(objective)
+    recorded(final)
+    data = str(tmp_path / "data")
+    # two folds of 24 train images: above the quick space's batch of 16
+    make_synthetic_shards(data, num_classes=3, per_class=16,
+                          samples_per_shard=12, seed=0, size=48)
+    tracking.set_tracking_uri(str(tmp_path / "mlruns"))
+    db = str(tmp_path / "study.db")
+    base = ["--data-dir", data, "--cpu", "--family", family, "--storage",
+            db, "--study-name", "tiny", "--cache-dir",
+            str(tmp_path / "cache"), "--image-size", str(SIZE)]
+    assert hyperopt_cli.main(base + [
+        "--quick", "--n-trials", "1", "--k-folds", "2", "--seed", "0",
+        "--optimizer", "adamw", "--schedule", "cosine",
+        "--label-smoothing", "0.1"]) == 0
+    assert len(fits) == 2
+    for model_cfg, train_cfg in fits:
+        assert model_cfg.family == family
+        assert model_cfg.stochastic_depth == tiny(family).stochastic_depth
+        assert (train_cfg.optimizer, train_cfg.schedule,
+                train_cfg.label_smoothing) == ("adamw", "cosine", 0.1)
+    [trial] = runner.create_study("tiny", db).get_trials()
+    assert trial.state == "COMPLETE" and np.isfinite(trial.value)
+    run = tracking.TrackingClient().get_run(
+        trial.user_attrs["tracking_run_id"])
+    assert run["params"]["recommended_epochs"] in ("1", "2")
+    if cli == "hyperopt_cli":
+        return
+    make_synthetic_shards(data, num_classes=3, per_class=4,
+                          samples_per_shard=12, seed=1, size=48,
+                          prefix="test")
+    ckpt = str(tmp_path / "ckpt")
+    assert final_cli.main(base + [
+        "--checkpoint-dir", ckpt, "--ema-decay", "0.9", "--grad-accum", "2",
+        "--mixup-alpha", "0.2", "--cutmix-alpha", "1.0"]) == 0
+    model_cfg, train_cfg = fits[-1]
+    assert model_cfg.family == family
+    assert (train_cfg.ema_decay, train_cfg.grad_accum_steps,
+            train_cfg.mixup_alpha, train_cfg.cutmix_alpha) == (
+        0.9, 2, 0.2, 1.0)
+    npz = os.path.join(ckpt, "final_model.npz")
+    pred = load_predictor(npz, cfg=port_config(bf16(dataclasses.replace(
+        small, num_classes=3))), batch_size=2, device="cpu")
+    assert pred.model.config.family == family
+    probs = pred.predict_probs(sources(8, n=2, size=48))
+    assert probs.shape == (2, 3) and np.isfinite(probs).all()
