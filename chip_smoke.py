@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (with Grad-CAM, hot reload and the
 exported artifact, for all four model families), curation, benchmark,
-training, sweep, final-training and batch-prediction paths once on one
-NVIDIA GPU.
+training, sweep, final-training, batch-prediction, native-decode,
+fidelity and monitor paths once on one NVIDIA GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
@@ -12,6 +12,7 @@ NVIDIA GPU.
   python3 chip_smoke.py --phases device,build,families_train
   python3 chip_smoke.py --phases device,build,hyperopt
   python3 chip_smoke.py --phases device,build,final
+  python3 chip_smoke.py --phases device,build,decode,fidelity,monitor
   python3 chip_smoke.py --phases device,build,profile
 
 Phases, each printing one JSON line:
@@ -19,7 +20,9 @@ Phases, each printing one JSON line:
 1. device   — the card (nvidia-smi name and power limit, torch's name).
 2. build    — nvcc builds every kernel of irp_tpu_torch/csrc/, one
               process per source, all started together (seconds, ptxas
-              register/shared-memory report).
+              register/shared-memory report), while g++ builds the host
+              JPEG decoder csrc/decode.cpp (seconds, whether it loads; the
+              build log's tail on an earlier line when it does not).
 3. kernels  — each kernel's wrapper on the card at the shapes its path
               gives it, held against its plain PyTorch version on the
               same inputs, and timed with CUDA events beside its bound,
@@ -51,13 +54,16 @@ Phases, each printing one JSON line:
               built from DIR and timed in turns with this tree's (parent,
               new, new, parent): parent_ms, parent_path_ms.
 4. serve    — ResNet50/224 (10 classes, hidden 512, random weights from a
-              seed) saved as .npz, loaded by load_predictor and served by
-              make_server; concurrent JPEG requests over HTTP.  Every
+              seed) saved as .npz, loaded by load_predictor with
+              fused_frozen_blocks='auto' and served by make_server;
+              concurrent JPEG requests over HTTP.  Every
               response must be 200 with probabilities summing to 1 and
               agree with an unfused predictor on the card, the launch
               counters must show the kernels on that path, and a float32
-              CPU forward must agree on a small input.  Prints images/s of
-              predict_probs at batch 64 and 256 and the /stats latency.
+              CPU forward must agree on a small input; a predictor loaded
+              with no fused flag (the serving default, 'off') must launch
+              K1 0 times.  Prints images/s of predict_probs at batch 64
+              and 256 and the /stats latency.
 5. explain  — the rest of serving at the same ResNet50/224 ('auto', random
               weights from the seed and from seed + 1, as .npz): (a)
               Grad-CAM at batch 8 (K2 once and K1 10 times a batch by the
@@ -198,8 +204,8 @@ Phases, each printing one JSON line:
               --checkpoint-dir; (b) train_final_model with K1 'auto'
               resumed from (a)'s directory after its newest checkpoint is
               removed; (c) predict_cli --shards with (a)'s
-              final_model.npz at batch 256 (--classes: the shards' labels
-              are class names).  Gates: rc 0, final_epochs, test accuracy
+              final_model.npz at batch 256 with --fused-frozen-blocks auto
+              (--classes: the shards' labels are class names).  Gates: rc 0, final_epochs, test accuracy
               >= 90% and the report's equal to it, the confusion matrix's
               sum, the five artifacts (PNGs open); K2 once per test batch
               and K1 0 in (a); one epoch and K1 10 per train and eval
@@ -209,7 +215,28 @@ Phases, each printing one JSON line:
               probabilities bit-equal on one batch.  Prints the fit's
               seconds and train images/s, the test evaluation's seconds
               and images/s, predict_cli's images/s and peak memory.
-13. profile — only when named in --phases: torch.profiler over batches
+13. decode  — the native JPEG decoder where it built on this host: (a)
+              against PIL on 256 JPEGs of 64-640 px sides, one in eight
+              grayscale and one in eight progressive (within 1/255, all
+              decoded; seconds and images/s of each); (b) a non-image and a
+              PNG flagged, the PNG filled by PIL in decode_blobs; (c)
+              build_cache over 4 shards of 256 JPEGs (150-500 px) with
+              use_native against PIL (keys equal, within 1/255; seconds and
+              images/s); (d) predict_cli --shards over them at batch 256
+              (ResNet50/224, the default 'off'), --decoder auto and pil
+              in turns, 3 runs each: images/s, >= 99.5% of labels equal,
+              K2 4 and K1 0 a run.  Where the decoder did not build, none
+              of it runs: the phase prints why and checks that 'auto'
+              decodes with PIL there.
+14. fidelity — fidelity_cli on the card at 224 px in f32 ('highest', TF32
+              off, unfused, eval-form BN) for ResNet50, ViT-B/16,
+              ConvNeXt-Tiny and EfficientNet-B0, seed-0 weights, 64
+              samples of one shard: each exits 0 (max |logit diff| to the
+              torchvision-layout executor <= 1e-3), K2 once and K1 never.
+15. monitor — device_memory_stats on the card (in-use, peak and limit GB)
+              and a profile_trace around one predict batch, whose Chrome
+              trace must name K2's kernel.
+16. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -228,10 +255,13 @@ from __future__ import annotations
 import argparse
 import base64
 import collections
+import contextlib
+import csv
 import functools
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -253,7 +283,7 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PHASES = ("device", "build", "kernels", "serve", "explain", "families",
           "curation", "bench", "train", "families_train", "hyperopt",
-          "final")
+          "final", "decode", "fidelity", "monitor")
 EXTRA_PHASES = ("profile",)  # run only when named
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -324,7 +354,18 @@ def phase_device(out: dict) -> None:
 
 def phase_build(out: dict) -> None:
     from irp_tpu_torch import _kernels
+    from irp_tpu_torch.data import jpeg
 
+    # g++ builds the host decoder while nvcc builds the kernels
+    decoder = {}
+
+    def build_decoder():
+        t0 = time.perf_counter()
+        decoder["loads"] = jpeg.native_decoder_available()
+        decoder["seconds"] = round(time.perf_counter() - t0, 3)
+
+    thread = threading.Thread(target=build_decoder)
+    thread.start()
     seconds = _kernels.build_all()
     report = {}
     for name in _kernels.SOURCES:
@@ -332,7 +373,16 @@ def phase_build(out: dict) -> None:
         report[name] = [ln.strip() for ln in _kernels.build_log(name)
                         .splitlines() if "registers" in ln or "spill" in ln
                         or "smem" in ln]
-    emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": report})
+    thread.join()
+    if not decoder["loads"]:
+        print("build: the native JPEG decoder (irp_tpu_torch/csrc/"
+              "decode.cpp) did not build or load on this host; its build "
+              "log ends:\n" + jpeg.build_log_tail(), flush=True)
+    out["decoder_loads"] = decoder["loads"]
+    emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": report,
+          "native_decoder": {"source": "irp_tpu_torch/csrc/decode.cpp",
+                             "route": "host C++ (g++), not a kernel",
+                             **decoder}})
 
 
 # (B, H, W, out_size, dtype): K2 off the cache geometry, each held to 0
@@ -897,6 +947,7 @@ def phase_serve(out: dict, seed: int) -> None:
         big = load_predictor(path, batch_size=256,
                              fused_frozen_blocks="auto")
         cpu = load_predictor(path, batch_size=2, device="cpu", cfg=f32_cfg)
+        default = load_predictor(path, batch_size=64)  # no fused flag
     server = make_server(pred, port=0, window_ms=5.0)
     for n in pred.pad_buckets:  # warm every served batch size
         pred.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
@@ -979,6 +1030,12 @@ def phase_serve(out: dict, seed: int) -> None:
                                    == p_unfused.argmax(1)[decisive]))
     cpu_diff = float(np.abs(cpu.predict_probs(images[:2])
                             - p_f32[:2]).max())
+    # the serving default is the JAX package's unfused forward: K1 only
+    # where a caller asks for it
+    _zero_launch_counts()
+    default.predict_probs(images)
+    torch.cuda.synchronize()
+    default_launches = _launch_counts()
     batches = stats["batches"]
     checks = {
         "all_200": True,
@@ -993,6 +1050,10 @@ def phase_serve(out: dict, seed: int) -> None:
         "k1_ten_per_forward": launches["identity_bottleneck"]
         == 10 * batches,
         "card_f32_vs_cpu_f32_le_1e-3": cpu_diff <= 1e-3,
+        "no_flag_load_predictor_k1_zero": (
+            default.model.config.fused_frozen_blocks == "off"
+            and default_launches == {"eval_preprocess": 1,
+                                     "identity_bottleneck": 0}),
     }
     rng = np.random.default_rng(seed + 1)
     ips = {}
@@ -1012,6 +1073,7 @@ def phase_serve(out: dict, seed: int) -> None:
           "max_abs_dprob_card_f32_vs_cpu_f32": cpu_diff,
           "top1_agree": f"{top1_agree}/{N_REQUESTS}",
           "decisive_images": int(decisive.sum()),
+          "no_flag_load_predictor_launches": default_launches,
           "images_per_s_predict_probs": ips, "checks": checks})
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1102,7 +1164,8 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
                                       meta={"image_size": 224}))
     npz, npz1 = paths
     buckets = serving_buckets("auto", 64)
-    pred = load_predictor(npz, batch_size=64, pad_buckets=buckets)
+    pred = load_predictor(npz, batch_size=64, pad_buckets=buckets,
+                          fused_frozen_blocks="auto")
     cfg = pred.model.config
     blobs = _jpegs(seed + 2, 64)
     images = decode_blobs(blobs)
@@ -1150,7 +1213,8 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
 
     # (b) the .irpx, exported on the card
     live = load_predictor(npz, batch_size=EXPORT_BATCHES[-1],
-                          pad_buckets=EXPORT_BATCHES)
+                          pad_buckets=EXPORT_BATCHES,
+                          fused_frozen_blocks="auto")
     irpx = f"{tmp}/resnet50_224.irpx"
     t0 = time.perf_counter()
     export_predictor(live, irpx)
@@ -1212,9 +1276,11 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
     # (c) the daemon with reload, through ServingClient: explains under
     # /predict traffic, then a reload under the same traffic
     def loader(path):
-        # serve_cli's loader: an .irpx brings its own ladder
+        # serve_cli's loader (--fused-frozen-blocks auto): an .irpx brings
+        # its own ladder and fused mode
         return load_predictor(path, batch_size=64, pad_buckets=(
-            None if path.endswith(".irpx") else buckets))
+            None if path.endswith(".irpx") else buckets),
+            fused_frozen_blocks="auto")
 
     server = make_server(pred, port=0, window_ms=5.0, loader=loader,
                          weights_path=npz,
@@ -1560,7 +1626,8 @@ def _families_phase(out: dict, seed: int, tmp: str) -> None:
     resnet = f"{tmp}/resnet50_224.npz"
     save_weights_npz(resnet, variables["params"], variables["batch_stats"],
                      meta={"image_size": 224})
-    timed["resnet50"] = ({b: load_predictor(resnet, batch_size=b)
+    timed["resnet50"] = ({b: load_predictor(resnet, batch_size=b,
+                                            fused_frozen_blocks="auto")
                           for b in FAMILY_BATCHES},
                          next(iter(timed.values()))[1])
     order = ["resnet50"] + [f for f, _ in FAMILY_MODELS]
@@ -3360,7 +3427,8 @@ def phase_final(out: dict, seed: int) -> None:
             rc_c = predict_cli.main([
                 "--weights", npz, "--shards", f"{data}/test-*.tar",
                 "--batch-size", "256", "--classes",
-                ",".join(info.class_names), "--out", preds_csv])
+                ",".join(info.class_names), "--out", preds_csv,
+                "--fused-frozen-blocks", "auto"])
         seconds_c = time.perf_counter() - t0
         launches_c = counts()
         summary = json.loads(printed.getvalue().strip().splitlines()[-1])
@@ -3407,6 +3475,310 @@ def phase_final(out: dict, seed: int) -> None:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"final checks failed: {failed}")
+
+
+# -- native decode, fidelity, monitor ----------------------------------------
+
+DECODE_N = 256  # mixed JPEGs held against PIL
+DECODE_SHARDS, DECODE_PER_SHARD = 4, 256  # build_cache and predict_cli
+DECODE_TURNS = 3  # predict_cli runs per decoder, in turns
+DECODE_AGREEMENT = 0.995  # labels equal between the two decoders' runs
+# fidelity_cli on the card, every family at 224 px in f32 (seed-0 weights)
+FIDELITY_MODELS = (("resnet50", ["--family", "resnet", "--depth", "50"]),
+                   ("vit_b_16", ["--family", "vit", "--vit-variant",
+                                 "b_16"]),
+                   ("convnext_tiny", ["--family", "convnext",
+                                      "--convnext-variant", "tiny"]),
+                   ("efficientnet_b0", ["--family", "efficientnet",
+                                        "--efficientnet-variant", "b0"]))
+FIDELITY_SAMPLES = 64
+K2_KERNEL_NAME = "eval_preprocess_kernel"  # csrc/eval_preprocess.cu
+
+
+def _mixed_jpegs(seed: int, n: int, sizes=(64, 641)) -> list:
+    """n JPEGs of sides drawn from ``sizes``: smooth noise, one in eight
+    grayscale, one in eight progressive, the rest baseline RGB at
+    quality 70-95."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(sizes[0], sizes[1], 2))
+        small = rng.uniform(0, 255, (h // 16 + 1, w // 16 + 1, 3))
+        img = np.repeat(np.repeat(small, 16, axis=0), 16, axis=1)[:h, :w]
+        img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+        pil = Image.fromarray(img.astype(np.uint8))
+        kw = {"quality": int(rng.integers(70, 96))}
+        if i % 8 == 1:
+            pil = pil.convert("L")
+        elif i % 8 == 2:
+            kw["progressive"] = True
+        buf = io.BytesIO()
+        pil.save(buf, format="JPEG", **kw)
+        out.append(buf.getvalue())
+    return out
+
+
+def _jpeg_shards(seed: int, root: str, n_shards: int, per_shard: int,
+                 sizes) -> list:
+    """WebDataset shards of :func:`_mixed_jpegs` under N_CLASSES class
+    names, through the port's ShardWriter."""
+    from irp_tpu_torch.data.tar import ShardWriter
+
+    blobs = _mixed_jpegs(seed, n_shards * per_shard, sizes)
+    labels = np.random.default_rng(seed + 1).integers(0, N_CLASSES,
+                                                      len(blobs))
+    writer = ShardWriter(root, "test", per_shard)
+    with writer:
+        for i, (blob, label) in enumerate(zip(blobs, labels)):
+            name = f"class{int(label)}"
+            writer.write({"__key__": f"{name}_{i:06d}", "jpg": blob,
+                          "cls": name, "json": {"class": name}})
+    return writer.shard_paths
+
+
+def phase_decode(out: dict, seed: int) -> None:
+    """The native decoder against PIL, build_cache native against PIL,
+    predict_cli --decoder auto against pil in turns; nothing of it where
+    the decoder did not build on this host (the reason is printed)."""
+    from irp_tpu_torch.data import jpeg
+    from irp_tpu_torch.data.pipeline import decode_blobs
+
+    if not jpeg.native_decoder_available():
+        tail = jpeg.build_log_tail(6)
+        print("decode: the native JPEG decoder is unavailable on this host, "
+              "so no native decode ran: native against PIL, build_cache "
+              "native against PIL and predict_cli --decoder auto against "
+              "pil were NOT run.  decoder='auto' decodes with PIL here.  "
+              "Build log tail:\n" + tail, flush=True)
+        blobs = _mixed_jpegs(seed, 8)
+        auto_is_pil = bool(np.array_equal(
+            decode_blobs(blobs, 256), decode_blobs(blobs, 256,
+                                                   decoder="pil")))
+        # a failed build is left on disk, so that later processes do not
+        # run the compiler again
+        recorded = os.path.exists(jpeg.library_path()[:-3] + ".failed")
+        emit({"phase": "decode", "native_decoder": False,
+              "reason": tail.splitlines()[-3:],
+              "not_run": ["native_vs_pil", "build_cache_native_vs_pil",
+                          "predict_cli_auto_vs_pil"],
+              "auto_decodes_with_pil_here": auto_is_pil,
+              "failed_build_recorded": recorded})
+        if not auto_is_pil:
+            raise RuntimeError("decode: 'auto' differs from PIL without the "
+                               "native decoder")
+        if not recorded and "IRP_DECODER_LIB" not in os.environ:
+            raise RuntimeError("decode: the failed build left no .failed "
+                               "file")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        _decode_phase(out, seed, tmp)
+
+
+def _decode_phase(out: dict, seed: int, tmp: str) -> None:
+    from PIL import Image
+
+    from irp_tpu_torch.cli import predict_cli
+    from irp_tpu_torch.data import jpeg
+    from irp_tpu_torch.data.analyze import analyze_webdataset
+    from irp_tpu_torch.data.pipeline import (build_cache, decode_blobs,
+                                             decode_to_rgb256)
+    from irp_tpu_torch.train.checkpoint import save_weights_npz
+
+    checks, report = {}, {}
+    # (a) native against PIL on mixed sizes, grayscale and progressive
+    blobs = _mixed_jpegs(seed, DECODE_N)
+    t0 = time.perf_counter()
+    native, ok = jpeg.decode_batch_native(blobs, 256)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pil = np.stack([decode_to_rgb256(b) for b in blobs])
+    pil_s = time.perf_counter() - t0
+    diff = int(np.abs(native.astype(int) - pil.astype(int)).max())
+    checks["native_all_decoded"] = bool(ok.all())
+    checks["native_within_1_of_pil"] = diff <= 1
+    report["native_vs_pil"] = {
+        "images": DECODE_N, "max_abs_diff_u8": diff,
+        "share_of_pixels_differing": float((native != pil).mean()),
+        "native_s": native_s, "pil_s": pil_s,
+        "native_images_per_s": DECODE_N / native_s,
+        "pil_images_per_s": DECODE_N / pil_s}
+    # (b) corrupt blobs are flagged, and decode_blobs fills them by PIL
+    png = io.BytesIO()
+    Image.fromarray(pil[0]).save(png, format="PNG")
+    mixed = [blobs[0], b"not an image", png.getvalue(), blobs[3]]
+    _, ok_mixed = jpeg.decode_batch_native(mixed, 256)
+    checks["corrupt_flagged"] = ok_mixed.tolist() == [True, False, False,
+                                                      True]
+    filled = decode_blobs([blobs[0], png.getvalue(), blobs[3]], 256)
+    checks["png_filled_by_pil"] = bool(np.array_equal(
+        filled[1], decode_to_rgb256(png.getvalue())))
+    emit({"phase": "decode", "part": "native_vs_pil",
+          **report["native_vs_pil"], "corrupt_flags": ok_mixed.tolist()})
+
+    # (c) build_cache over a few shards, native against PIL
+    shards = _jpeg_shards(seed + 1, f"{tmp}/data", DECODE_SHARDS,
+                          DECODE_PER_SHARD, (150, 500))
+    names = analyze_webdataset(shards).class_names
+    n = DECODE_SHARDS * DECODE_PER_SHARD
+    t0 = time.perf_counter()
+    nat = build_cache(shards, names, use_native=True)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = build_cache(shards, names, use_native=False)
+    ref_s = time.perf_counter() - t0
+    cache_diff = int(np.abs(nat.images.astype(int)
+                            - ref.images.astype(int)).max())
+    checks["cache_keys_equal"] = nat.keys == ref.keys and len(nat) == n
+    checks["cache_within_1"] = cache_diff <= 1
+    report["build_cache"] = {
+        "images": n, "native_s": nat_s, "pil_s": ref_s,
+        "native_images_per_s": n / nat_s, "pil_images_per_s": n / ref_s,
+        "max_abs_diff_u8": cache_diff}
+    emit({"phase": "decode", "part": "build_cache", **report["build_cache"]})
+    del nat, ref
+
+    # (d) predict_cli --shards at batch 256, auto and pil in turns
+    variables = _random_variables(seed)
+    npz = save_weights_npz(f"{tmp}/resnet50_224.npz", variables["params"],
+                           variables["batch_stats"],
+                           meta={"image_size": 224})
+    runs = {"auto": [], "pil": []}
+    labels = {}
+    for i in range(DECODE_TURNS):
+        for dec in (("auto", "pil") if i % 2 == 0 else ("pil", "auto")):
+            preds_csv = f"{tmp}/preds_{dec}.csv"
+            printed = io.StringIO()
+            _zero_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                rc = predict_cli.main([
+                    "--weights", npz, "--shards", f"{tmp}/data/test-*.tar",
+                    "--batch-size", "256", "--classes", ",".join(
+                        f"class{k}" for k in range(N_CLASSES)),
+                    "--decoder", dec, "--out", preds_csv])
+            launches = _launch_counts()
+            summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+            with open(preds_csv) as f:
+                labels[dec] = {row["key"]: int(row["label"])
+                               for row in csv.DictReader(f)}
+            runs[dec].append({"rc": rc, "images_per_s":
+                              summary["imgs_per_sec"],
+                              "launches": launches})
+    agree = (sum(labels["auto"][k] == v for k, v in labels["pil"].items())
+             / len(labels["pil"]))
+    want = {"eval_preprocess": math.ceil(n / 256), "identity_bottleneck": 0}
+    checks["predict_rc_0"] = all(r["rc"] == 0 for v in runs.values()
+                                 for r in v)
+    checks["predict_labels_agree"] = agree >= DECODE_AGREEMENT
+    checks["predict_k2_per_batch_k1_zero"] = all(
+        r["launches"] == want for v in runs.values() for r in v)
+    out["launches"]["decode"] = {
+        key: sum(r["launches"][key] for v in runs.values() for r in v)
+        for key in want}
+    report["predict_cli"] = {
+        "images": n, "batch": 256, "turns": DECODE_TURNS,
+        "images_per_s": {dec: [r["images_per_s"] for r in v]
+                         for dec, v in runs.items()},
+        "label_agreement": agree, "launches_per_run": want}
+    emit({"phase": "decode", "part": "predict_cli", **report["predict_cli"],
+          "checks": checks})
+    out["decode"] = report
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"decode checks failed: {failed}")
+
+
+def phase_fidelity(out: dict, seed: int) -> None:
+    """fidelity_cli on the card for the four families: the port's f32
+    classifier against the torchvision-layout executor of the same
+    seed-0 weights, within 1e-3."""
+    import re
+
+    from irp_tpu_torch.cli import fidelity_cli
+
+    checks, results = {}, {}
+    totals = {"eval_preprocess": 0, "identity_bottleneck": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        _jpeg_shards(seed + 5, tmp, 1, FIDELITY_SAMPLES, (150, 500))
+        for name, flags in FIDELITY_MODELS:
+            printed = io.StringIO()
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rc = fidelity_cli.main([
+                    "--shards", f"{tmp}/test-*.tar", "--samples",
+                    str(FIDELITY_SAMPLES), "--num-classes", str(N_CLASSES),
+                    *flags])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _launch_counts()
+            line = printed.getvalue().strip().splitlines()[-1]
+            m = re.search(r"samples: (\d+)  max \|logit diff\|: (\S+)  "
+                          r"top-1 agreement: (\S+)%", line)
+            results[name] = {
+                "rc": rc, "samples": int(m.group(1)) if m else None,
+                "max_abs_logit_diff": float(m.group(2)) if m else None,
+                "top1_agreement_pct": float(m.group(3)) if m else None,
+                "seconds": seconds, "launches": launches, "line": line}
+            checks[f"{name}_rc_0_le_1e-3"] = rc == 0
+            checks[f"{name}_{FIDELITY_SAMPLES}_samples"] = (
+                m is not None and int(m.group(1)) == FIDELITY_SAMPLES)
+            checks[f"{name}_k2_once_k1_zero"] = launches == {
+                "eval_preprocess": 1, "identity_bottleneck": 0}
+            for key in totals:
+                totals[key] += launches[key]
+            emit({"phase": "fidelity", "model": name, **results[name]})
+    out["launches"]["fidelity"] = totals
+    emit({"phase": "fidelity", "image_size": 224, "dtype": "float32",
+          "weights": "random, seed 0", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"fidelity checks failed: {failed}")
+
+
+def phase_monitor(out: dict, seed: int) -> None:
+    """device_memory_stats on the card, and a profile_trace around one
+    predict batch that names K2's kernel."""
+    from irp_tpu_torch.infer import make_predictor
+    from irp_tpu_torch.utils.monitor import device_memory_stats, profile_trace
+
+    pred = make_predictor(_random_variables(seed), batch_size=64)
+    batch = np.random.default_rng(seed).integers(0, 256, (64, 256, 256, 3),
+                                                 np.uint8)
+    pred.predict_probs(batch)  # warm
+    stats = device_memory_stats()
+    entry = stats.get("cuda:0", {})
+    checks = {
+        "one_entry_per_card": len(stats) == torch.cuda.device_count(),
+        "in_use_peak_limit": set(entry) == {"gb_in_use", "peak_gb_in_use",
+                                            "gb_limit"},
+        "in_use_le_peak_le_limit": bool(entry) and 0 < entry["gb_in_use"]
+        <= entry["peak_gb_in_use"] <= entry["gb_limit"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_launch_counts()
+        with profile_trace(tmp):
+            pred.predict_probs(batch)
+        launches = _launch_counts()
+        files = os.listdir(tmp)
+        events = []
+        if len(files) == 1:
+            with open(os.path.join(tmp, files[0])) as f:
+                events = json.load(f).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k2 = [k for k in kernels if K2_KERNEL_NAME in k]
+    checks["trace_written"] = len(files) == 1
+    checks["trace_names_k2"] = len(k2) == 1
+    checks["k2_once_k1_zero"] = launches == {"eval_preprocess": 1,
+                                             "identity_bottleneck": 0}
+    out["launches"]["monitor"] = launches
+    emit({"phase": "monitor", "device_memory_stats": stats,
+          "trace_events": len(events), "trace_kernels": len(kernels),
+          "trace_k2": k2, "first_kernels": kernels[:2],
+          "launches": launches, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"monitor checks failed: {failed}")
 
 
 _PROFILE_GROUPS = (
@@ -3468,12 +3840,13 @@ def _device_time(prof, wall_us: float, reps: int) -> dict:
 
 
 def _profiled(fn, reps: int) -> dict:
-    """torch.profiler over ``reps`` calls of ``fn`` after a synchronize."""
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over ``reps`` calls of ``fn`` after a synchronize,
+    behind monitor.profile_session's discarded warm-up step (the tracer
+    can drop a session's first kernels late in a long process)."""
+    from irp_tpu_torch.utils.monitor import profile_session
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_session() as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -3638,6 +4011,12 @@ def main(argv=None) -> int:
         phase_hyperopt(out, args.seed)
     if "final" in phases:
         phase_final(out, args.seed)
+    if "decode" in phases:
+        phase_decode(out, args.seed)
+    if "fidelity" in phases:
+        phase_fidelity(out, args.seed)
+    if "monitor" in phases:
+        phase_monitor(out, args.seed)
     if "profile" in phases:
         phase_profile(out, args.seed)
     # the bench phase's B=256 times, beside each kernel's yardstick call

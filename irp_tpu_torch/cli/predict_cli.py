@@ -23,6 +23,11 @@ shards on the CUDA device (``--cpu`` for the CPU).
   python -m irp_tpu_torch.cli.predict_cli --weights final_model.npz \\
       --export model.irpx --batch-size 64 --export-batch-buckets auto
 
+The forward is the JAX package's unfused one; ``--fused-frozen-blocks
+auto`` routes ResNet50's frozen identity bottlenecks through the fused
+CUDA kernel on the card.  ``--decoder auto`` (the default) decodes JPEGs
+with the native batch decoder where it builds (``data/jpeg.py``).
+
 ``--data-parallel`` (ROADMAP A14) is not ported yet: it exits 2 before
 any weights are loaded.
 """
@@ -130,13 +135,20 @@ def main(argv=None):
                         "drove each prediction, irp_tpu_torch/explain.py) "
                         "to DIR; --images mode only")
     p.add_argument("--decoder", choices=["auto", "pil"], default="auto",
-                   help="both decode with PIL (the native decoder is not "
-                        "ported yet)")
+                   help="auto = the native batch JPEG decoder "
+                        "(irp_tpu_torch/data/jpeg.py) with PIL for "
+                        "non-JPEGs and its misses, pil = PIL only")
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported yet (ROADMAP A14)")
     p.add_argument("--tta", action="store_true",
                    help="test-time augmentation: average the softmax over "
                         "the identity and the horizontal flip")
+    p.add_argument("--fused-frozen-blocks", choices=["auto", "on", "off"],
+                   default="off",
+                   help="route the frozen identity bottlenecks through the "
+                        "fused CUDA kernel: auto = on the card when "
+                        "eligible, on = forced, off = never (the default, "
+                        "the JAX package's unfused forward)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     args = p.parse_args(argv)
@@ -193,11 +205,12 @@ def main(argv=None):
             return 2
     class_names = load_class_names(args.classes) if args.classes else None
     try:
-        predictor = load_predictor(args.weights, class_names=class_names,
-                                   batch_size=args.batch_size,
-                                   image_size=args.image_size,
-                                   pad_buckets=export_buckets, tta=args.tta,
-                                   device="cpu" if args.cpu else None)
+        predictor = load_predictor(
+            args.weights, class_names=class_names,
+            batch_size=args.batch_size, image_size=args.image_size,
+            pad_buckets=export_buckets, tta=args.tta,
+            device="cpu" if args.cpu else None,
+            fused_frozen_blocks=args.fused_frozen_blocks)
     except (ValueError, OSError) as e:  # wrong-length --classes, bad
         # format, a missing file, ...
         print(f"error: {e}", file=sys.stderr)
@@ -247,6 +260,12 @@ def main(argv=None):
             "num_classes": predictor.num_classes}))
         return 0
 
+    from irp_tpu_torch.data.jpeg import prepare
+
+    why = prepare(args.decoder)  # build the decoder outside the timing
+    if why:
+        print(f"note: the native JPEG decoder is unavailable, decoding "
+              f"with PIL: {why}", file=sys.stderr)
     truth = None
     t0 = time.perf_counter()
     if args.images:

@@ -16,7 +16,9 @@ over HTTP on the card (irp_tpu_torch/serve.py).
       -d '{"weights": "new_model.npz"}' http://127.0.0.1:8000/reload
 
 --weights also takes an .irpx exported by predict_cli --export: its
-programs fix the batch, the bucket ladder, TTA and the fused mode.
+programs fix the batch, the bucket ladder, TTA and the fused mode.  The
+live weights serve the JAX package's unfused forward unless
+--fused-frozen-blocks auto (or on) asks for the fused CUDA kernel.
 """
 
 from __future__ import annotations
@@ -56,15 +58,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eval crop; default = the npz artifact's embedded "
                         "value, else 224")
     p.add_argument("--decoder", choices=["auto", "pil"], default="auto",
-                   help="image decoder (both PIL in this slice)")
+                   help="image decoder: auto = the native batch JPEG "
+                        "decoder (irp_tpu_torch/data/jpeg.py) with PIL for "
+                        "non-JPEGs and its misses, pil = PIL only")
     p.add_argument("--tta", action="store_true",
                    help="average the softmax over the identity and the "
                         "horizontal flip (~2x device time per dispatch)")
     p.add_argument("--fused-frozen-blocks", choices=["auto", "on", "off"],
-                   default="auto",
+                   default="off",
                    help="route the frozen identity bottlenecks through the "
                         "fused CUDA kernel: auto = on the card when "
-                        "eligible, on = forced, off = never")
+                        "eligible, on = forced, off = never (the default, "
+                        "the JAX package's unfused forward)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")
     p.add_argument("--verbose", action="store_true",
@@ -155,6 +160,12 @@ def main(argv=None) -> int:
           flush=True)
     for n in shapes:
         predictor.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+    from irp_tpu_torch.data.jpeg import prepare
+
+    why = prepare(args.decoder)  # build the decoder before the first request
+    if why:
+        print(f"note: the native JPEG decoder is unavailable, decoding "
+              f"with PIL: {why}", file=sys.stderr)
 
     # SIGTERM drains like Ctrl-C: stop accepting, finish in-flight work
     draining = threading.Event()

@@ -1,10 +1,11 @@
 """Configuration of the PyTorch port.
 
-The port's own copy of the constants and of ``ModelConfig``,
-``DatasetInfo`` and ``TrainConfig`` from the JAX package's ``config.py``:
-the same fields with the same defaults, so that a configuration means the
-same model and the same training run in both packages.  All four families
-(ResNet, ViT, EfficientNet, ConvNeXt) serve and train.
+The port's own copy of the constants and of ``DataConfig``,
+``ModelConfig``, ``DatasetInfo`` and ``TrainConfig`` from the JAX
+package's ``config.py``: the same fields with the same defaults, so that
+a configuration means the same model and the same training run in both
+packages.  All four families (ResNet, ViT, EfficientNet, ConvNeXt)
+serve and train.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from typing import Mapping
 # ImageNet normalization constants.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+IMAGE_SIZE = 224  # training/eval resolution (the crop)
+EVAL_RESIZE = 256  # the eval path's Resize(256, 256): the cache geometry
 
 FUSED_MODES = ("auto", "on", "off")
 
@@ -37,6 +41,27 @@ class DatasetInfo:
     @property
     def name_to_index(self) -> Mapping[str, int]:
         return {n: i for i, n in enumerate(self.class_names)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Shard paths + input pipeline settings.
+
+    ``placement`` 'hbm' keeps the decoded dataset resident in device
+    memory (``data/pipeline.py::HBMDataset``), 'stream' copies host batches
+    to the device; ``cache_dir`` is where the decoded uint8 cache
+    (``build_cache``) lives."""
+
+    train_shards: tuple = ()
+    test_shards: tuple = ()
+    image_size: int = IMAGE_SIZE
+    eval_resize: int = EVAL_RESIZE
+    shuffle_buffer: int = 1000
+    samples_per_shard: int = 1000
+    mean: tuple = IMAGENET_MEAN
+    std: tuple = IMAGENET_STD
+    placement: str = "hbm"
+    cache_dir: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,10 @@ functions/data_curation.py):
   MD5-of-64x64-RGB duplicate hashing, corrupt detection
   (data_curation.py:294-486, hash :283-292)
 - ``write_analysis_report`` — plain-text mirror of the report (the
-  reference commits ``dataset_analysis_report.txt`` as a golden artifact)
+  reference commits ``dataset_analysis_report.txt`` as a golden artifact);
+  ``display_dataset_report`` prints it and returns its pandas tables
+  (with a sample-image grid), ``render_analysis_markdown`` renders it as
+  Markdown with the reference's section headers
 - ``clean_image_dataset`` — copy-filter excluding grayscale / RGBA /
   below-min-resolution / duplicates; writes
   ``dataset_cleaning_report.txt`` (data_curation.py:488-635)
@@ -321,6 +324,71 @@ def analyze_dataset(dataset_path: str, seed: int = 0) -> DatasetAnalysis:
                            sample_images_by_class=samples)
 
 
+def display_dataset_report(analysis: DatasetAnalysis,
+                           report_path: Optional[str] = None,
+                           sample_grid_path: Optional[str] = None) -> dict:
+    """Render the analysis: pandas tables of the classes and the quality
+    flags (returned), the report printed as :func:`render_analysis_report`
+    writes it (and as Markdown in a notebook), the report file at
+    ``report_path`` and a grid of one sample image per class at
+    ``sample_grid_path`` when given (reference data_curation.py:89-281)."""
+    import pandas as pd
+
+    counts = analysis.class_counts
+    class_table = pd.DataFrame({
+        "class": list(analysis.class_names),
+        "images": [counts.get(c, 0) for c in analysis.class_names],
+    })
+    class_table["share_%"] = (100.0 * class_table["images"]
+                              / max(analysis.total_images, 1)).round(2)
+    quality = pd.DataFrame({
+        "flag": ["grayscale", "rgba", "duplicates", "corrupted",
+                 "below_224", "below_128", "below_64", "below_32"],
+        "count": [len(analysis.grayscale_images),
+                  len(analysis.rgba_images),
+                  len(analysis.duplicate_pairs),
+                  len(analysis.corrupted_files),
+                  analysis.small_image_counts["below_224"],
+                  analysis.small_image_counts["below_128"],
+                  analysis.small_image_counts["below_64"],
+                  analysis.small_image_counts["below_32"]],
+    })
+    grid_name = os.path.basename(sample_grid_path) if sample_grid_path \
+        else "sample_images.png"
+    # in a notebook, the rich Markdown form ...
+    try:
+        from IPython import get_ipython
+        from IPython.display import Markdown, display
+        if get_ipython() is not None:
+            display(Markdown(render_analysis_markdown(analysis, grid_name)))
+    except ImportError:
+        pass
+    # ... while stdout always mirrors the report file
+    print(render_analysis_report(analysis, grid_name), end="")
+
+    out = {"class_table": class_table, "quality_table": quality}
+    if report_path:
+        out["report_path"] = write_analysis_report(analysis, report_path,
+                                                   grid_name)
+    if sample_grid_path and analysis.sample_images_by_class:
+        from PIL import Image
+
+        from irp_tpu_torch.utils.viz import plot_image_grid
+
+        images, titles = [], []
+        for cls, path in sorted(analysis.sample_images_by_class.items()):
+            try:
+                with Image.open(path) as img:
+                    images.append(np.asarray(img.convert("RGB")))
+                titles.append(cls)
+            except OSError:
+                continue
+        out["sample_grid_path"] = plot_image_grid(
+            images, titles, sample_grid_path,
+            suptitle="Sample images by class")
+    return out
+
+
 def _summary_frame(analysis: DatasetAnalysis):
     import pandas as pd
 
@@ -479,6 +547,55 @@ def render_analysis_report(analysis: DatasetAnalysis,
     w("Sample Images")
     w(f"\nSample images saved to '{sample_grid_name}'")
     return buf.getvalue()
+
+
+def render_analysis_markdown(analysis: DatasetAnalysis,
+                             sample_grid_name: str =
+                             "sample_images.png") -> str:
+    """The analysis as Markdown with the reference's emoji section headers
+    (reference data_curation.py:120-260 displays these through IPython;
+    :func:`render_analysis_report` is the emoji-stripped text mirror), for
+    ``IPython.display.Markdown`` or any Markdown viewer."""
+    parts = []
+    counts = analysis.class_counts
+
+    parts.append("## 📂 Dataset Folder Structure")
+    structure = f"DATASET_PATH: {analysis.root}\nFOLDER_STRUCTURE:\n"
+    for cls in analysis.class_names:
+        structure += f"  - {cls} ({counts.get(cls, 0)} images)\n"
+    parts.append(f"```\n{structure}```")
+
+    parts.append("## 📊 Dataset Summary Statistics")
+    summary = _summary_frame(analysis)
+    summary["Avg Images/Class"] = summary["Avg Images/Class"].round(1)
+    parts.append(summary.to_markdown(index=False))
+
+    parts.append("## 🔍 Small Image Analysis")
+    parts.append(_small_image_frame(analysis).to_markdown(index=False))
+
+    parts.append("## 📁 Class Distribution")
+    class_df = _class_distribution_frame(analysis)
+    if not class_df.empty:
+        parts.append(class_df.to_markdown(index=False))
+
+    parts.append("## 🖼️ Image Characteristics")
+    res_df = _resolution_frame(analysis)
+    if res_df is not None:
+        parts.append(res_df.to_markdown(index=False))
+
+    parts.append("## 📄 File Formats")
+    parts.append(", ".join(f"`{f}`" for f in analysis.formats) or "none")
+
+    parts.append("## ❌ Corrupted Files")
+    if analysis.corrupted_files:
+        parts.append(f"⚠️ {len(analysis.corrupted_files)} corrupted "
+                     "files found")
+    else:
+        parts.append("✅ No corrupted files found")
+
+    parts.append("## 📸 Sample Images")
+    parts.append(f"Sample images saved to `{sample_grid_name}`")
+    return "\n\n".join(parts) + "\n"
 
 
 def write_analysis_report(analysis: DatasetAnalysis, path: str,

@@ -1,8 +1,10 @@
 """Image decoding, the decoded dataset and the device-resident data plane
 (the JAX package's ``data/pipeline.py``).
 
-- Decoding goes through PIL; the native batch JPEG decoder comes with a
-  later slice, so ``decoder='auto'`` and ``'pil'`` both use PIL here.
+- :func:`decode_blobs` with ``decoder='auto'`` decodes JPEGs with the
+  native batch decoder (``data/jpeg.py``) where it builds and loads, and
+  everything it cannot decode with PIL, as the JAX package does;
+  ``'pil'`` decodes with PIL only.
 - :func:`build_cache` decodes WebDataset shards once into the JAX
   package's on-disk cache (the same file names and bytes), so a cache
   written by either package loads in the other.  :class:`CachedDataset`
@@ -52,14 +54,27 @@ def decode_blobs(blobs: Sequence[bytes], size: int = CACHE_SIZE,
                  out: Optional[np.ndarray] = None,
                  decoder: str = "auto") -> np.ndarray:
     """Decode image byte strings to (N, size, size, 3) uint8, into ``out``
-    when given."""
+    (C-contiguous) when given.
+
+    ``decoder='auto'``: the native batch decoder takes the whole batch
+    where it is available, and PIL decodes each blob it flags (a PNG, a
+    corrupt file); ``'pil'``: PIL for every blob.
+    """
     if decoder not in ("auto", "pil"):
         raise ValueError(f"unknown decoder {decoder!r} (auto or pil)")
     n = len(blobs)
     if out is None:
         out = np.empty((n, size, size, 3), np.uint8)
+    ok = None
+    if decoder == "auto" and n > 0:
+        from irp_tpu_torch.data.jpeg import (decode_batch_native,
+                                             native_decoder_available)
+
+        if native_decoder_available():
+            _, ok = decode_batch_native(list(blobs), size, out=out)
     for j in range(n):
-        out[j] = decode_to_rgb256(blobs[j], size)
+        if ok is None or not ok[j]:
+            out[j] = decode_to_rgb256(blobs[j], size)
     return out
 
 
@@ -121,25 +136,32 @@ def build_cache(shard_paths: Sequence[str], class_names: Sequence[str],
 
     ``class_names`` fixes the label mapping (from
     :func:`~irp_tpu_torch.data.analyze.analyze_webdataset`).  ``decoder``
-    replaces the per-sample PIL decoder (cache tag ``_custom``).  The
-    files are the JAX package's: ``cache_v2_{fp}_{size}{_pil|_custom}``
-    with ``.json`` (class names, keys, shard ids and paths), ``.img.npy``
-    and ``.lab.npy``.  Images stream into a memmap after a pass that only
-    counts samples; an undecodable sample is skipped and named in one
-    warning line, and the file is then copied to its right size.
+    replaces the per-sample PIL decoder (cache tag ``_custom``).
 
-    The native batch decoder is not ported: ``use_native=True``, or the
-    ``IRP_NATIVE_DECODE=1`` environment variable without a ``decoder``,
-    raises ``NotImplementedError``.
+    ``use_native`` (default: the ``IRP_NATIVE_DECODE=1`` environment
+    variable, when no ``decoder`` is given) decodes one shard at a time
+    through the native batch decoder (``data/jpeg.py``), so its threads
+    see a whole shard; PIL decodes what it flags.  Where the library is
+    unavailable the cache is built with PIL.  Native and PIL caches differ
+    by up to 1/255, so the decoder is part of the cache's name.
+
+    The files are the JAX package's:
+    ``cache_v2_{fp}_{size}{_pil|_native|_custom}`` with ``.json`` (class
+    names, keys, shard ids and paths), ``.img.npy`` and ``.lab.npy``.
+    Images stream into a memmap after a pass that only counts samples; an
+    undecodable sample is skipped and named in one warning line, and the
+    file is then copied to its right size.
     """
     if use_native is None:
         use_native = (decoder is None
                       and os.environ.get("IRP_NATIVE_DECODE", "") == "1")
-    if use_native:
-        raise NotImplementedError(
-            "the native JPEG decoder (native/decode.cpp) is not ported to "
-            "irp_tpu_torch yet (ROADMAP Queue 1); unset IRP_NATIVE_DECODE "
-            "to build the cache with PIL")
+    batch_decoder = None
+    if use_native and decoder is None:
+        from irp_tpu_torch.data.jpeg import (decode_batch_native,
+                                             native_decoder_available)
+
+        if native_decoder_available():
+            batch_decoder = decode_batch_native
     name_to_idx = {n: i for i, n in enumerate(class_names)}
     custom_decoder = decoder is not None and decoder is not decode_to_rgb256
     decoder = decoder or decode_to_rgb256
@@ -148,7 +170,12 @@ def build_cache(shard_paths: Sequence[str], class_names: Sequence[str],
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         fp = _fingerprint(shard_paths)
-        dec_tag = "_custom" if custom_decoder else "_pil"
+        if custom_decoder:
+            dec_tag = "_custom"
+        elif batch_decoder is not None:
+            dec_tag = "_native"
+        else:
+            dec_tag = "_pil"
         base = os.path.join(cache_dir, f"cache_v2_{fp}_{size}{dec_tag}")
         meta_path, img_path, lab_path = (base + ".json", base + ".img.npy",
                                          base + ".lab.npy")
@@ -186,18 +213,27 @@ def build_cache(shard_paths: Sequence[str], class_names: Sequence[str],
     written = 0
     skipped = []
     for shard_i, shard in enumerate(shard_list):
+        pending = []  # (jpg, label, key) of this shard
         for sample in iter_shard(shard):
             jpg = sample.get("jpg")
             cls = sample.get("cls")
             if jpg is None or cls is None:
                 continue
             name = cls.decode("utf-8") if isinstance(cls, bytes) else cls
-            label, key = name_to_idx[name], sample["__key__"]
-            try:
-                img = decoder(jpg, size)
-            except Exception:  # noqa: BLE001 — any decoder error skips
-                skipped.append(key)
-                continue
+            pending.append((jpg, name_to_idx[name], sample["__key__"]))
+        decoded = ok = None
+        if batch_decoder is not None and pending:
+            # one native call per shard: its threads decode the shard
+            decoded, ok = batch_decoder([p[0] for p in pending], size)
+        for j, (jpg, label, key) in enumerate(pending):
+            if ok is not None and ok[j]:
+                img = decoded[j]
+            else:
+                try:
+                    img = decoder(jpg, size)
+                except Exception:  # noqa: BLE001 — any decoder error skips
+                    skipped.append(key)
+                    continue
             if writer is not None:
                 writer[written] = img
                 written += 1

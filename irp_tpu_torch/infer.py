@@ -356,9 +356,10 @@ class Predictor:
                      decoder: str = "auto") -> np.ndarray:
         """Read and decode image files to the cache geometry
         (N, 256, 256, 3), 256x256 bilinear as
-        ``data/pipeline.py::decode_to_rgb256``, so that files score as
-        cached training data does.  ``decoder`` 'auto' and 'pil' both
-        decode with PIL (the native decoder is not ported yet)."""
+        ``data/pipeline.py::decode_blobs``, so that files score as
+        cached training data does: ``decoder`` 'auto' takes the native
+        batch decoder with PIL for what it cannot decode, 'pil' PIL
+        only."""
         from irp_tpu_torch.data.pipeline import decode_blobs
 
         blobs = []
@@ -500,12 +501,14 @@ def make_predictor(variables: dict,
                    mesh=None, image_size: Optional[int] = None,
                    pad_buckets: Optional[Sequence[int]] = None,
                    tta: bool = False, device=None,
-                   fused_frozen_blocks: str = "auto") -> Predictor:
+                   fused_frozen_blocks: str = "off") -> Predictor:
     """Predictor from an in-memory ``{'params', 'batch_stats'}`` tree.
 
     ``image_size`` sets the eval crop when ``cfg`` is inferred from the
     weight tree; ``fused_frozen_blocks`` likewise applies only to an
-    inferred config.  Both are ignored when an explicit ``cfg`` is given.
+    inferred config ('off', the JAX package's unfused forward, unless the
+    caller asks for 'auto' or 'on').  Both are ignored when an explicit
+    ``cfg`` is given.
     """
     from irp_tpu_torch.models.classifier import Classifier
     from irp_tpu_torch.models.convert import jax_variables_to_state_dict
@@ -533,7 +536,7 @@ def load_predictor(weights_path: str,
                    image_size: Optional[int] = None,
                    pad_buckets: Optional[Sequence[int]] = None,
                    tta: bool = False, device=None,
-                   fused_frozen_blocks: str = "auto") -> Predictor:
+                   fused_frozen_blocks: str = "off") -> Predictor:
     """Predictor from a weights artifact on ``device`` (CUDA unless the
     caller asks for the CPU; with no card, asking for CUDA raises).
 

@@ -22,6 +22,19 @@ Every random choice is an argument (:class:`AugmentDraws`): the two
 packages' generators cannot draw the same numbers, so a parity test feeds
 the JAX package's draws here, and :func:`sample_augment_draws` draws them
 in training with the same laws.
+
+Per-sample path: :func:`augment_batch`, the JAX package's vmapped
+``_augment_one`` (flips on the image, then :func:`random_resized_crop`
+resampled with ``jax.image.scale_and_translate``'s antialiased weights,
+:func:`color_jitter` with :func:`adjust_hue`, the rotation, then
+:func:`normalize`), on the per-image draws of :class:`SampleDraws`
+(:func:`sample_per_image_draws` draws them).  It is API only, as in the
+JAX package: no training path runs it.  Its crop weights
+(:func:`scale_translate_weights`, ``jax.image.scale_and_translate``'s)
+and the fused path's (:func:`interp_matrix`, the JAX package's fused
+matrices) are the same triangle filter computed in a different order,
+and round differently; each path keeps its own builder so that it stays
+equal to its JAX counterpart.
 """
 
 from __future__ import annotations
@@ -241,23 +254,34 @@ def color_jitter_batch(x: torch.Tensor, brightness=None, contrast=None,
     """ColorJitter on a (B, H, W, 3) [0, 1] batch with per-image factors
     ((B,) tensors; None skips that op), in the order b -> c -> s -> h.
     Factors are cast to x.dtype, so a bf16 batch stays bf16."""
-    dt = x.dtype
-
-    def per_image(f, ndim=4):
-        return f.to(dt).reshape((-1,) + (1,) * (ndim - 1))
-
     if brightness is not None:
-        x = (per_image(brightness) * x).clamp(0.0, 1.0)
+        x = (_per_image(brightness, x, 4) * x).clamp(0.0, 1.0)
     if contrast is not None:
         mean_gray = _grayscale(x).float().mean(dim=(1, 2, 3),
-                                               keepdim=True).to(dt)
-        x = _blend(x, mean_gray, per_image(contrast)).clamp(0.0, 1.0)
+                                               keepdim=True).to(x.dtype)
+        x = _blend(x, mean_gray, _per_image(contrast, x, 4)).clamp(0.0, 1.0)
     if saturation is not None:
-        x = _blend(x, _grayscale(x), per_image(saturation)).clamp(0.0, 1.0)
+        x = _blend(x, _grayscale(x), _per_image(saturation, x, 4)).clamp(
+            0.0, 1.0)
     if hue is not None:
-        h, s, v = _rgb_to_hsv(x)
-        x = _hsv_to_rgb(torch.remainder(h + per_image(hue, 3), 1.0), s, v)
+        x = adjust_hue(x, hue)
     return x
+
+
+def _per_image(f, x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A scalar, or (B,) factors of a batch, in x.dtype, shaped to
+    broadcast over the trailing ``ndim - 1`` dims of an image."""
+    f = torch.as_tensor(f, device=x.device).to(x.dtype)
+    return f.reshape((-1,) + (1,) * (ndim - 1)) if f.ndim else f
+
+
+def adjust_hue(x: torch.Tensor, shift) -> torch.Tensor:
+    """Shift the hue of a [0, 1] image (H, W, 3), or of a batch, by
+    ``shift`` turns (a scalar, or (B,) for a batch): torchvision's
+    ``adjust_hue`` through HSV."""
+    h, s, v = _rgb_to_hsv(x)
+    return _hsv_to_rgb(torch.remainder(h + _per_image(shift, x, 3), 1.0),
+                       s, v)
 
 
 def _round_half_away(a: torch.Tensor) -> torch.Tensor:
@@ -324,3 +348,185 @@ def augment_batch_fused(images_u8: torch.Tensor, draws: AugmentDraws,
     mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
     std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
     return ((x.float() - mean_t) / std_t).to(dtype).contiguous()
+
+
+# -- the per-sample path (the JAX package's augment_batch) -----------------
+
+def normalize(x: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
+              std: Sequence[float] = IMAGENET_STD, dtype=torch.bfloat16
+              ) -> torch.Tensor:
+    """A [0, 255] image (uint8 or float), channels last -> ``dtype``
+    ``(x / 255 - mean) / std`` (ToTensor + Normalize)."""
+    x = x.float() / 255.0
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return ((x - mean_t) / std_t).to(dtype)
+
+
+def color_jitter(x: torch.Tensor, brightness=None, contrast=None,
+                 saturation=None, hue=None) -> torch.Tensor:
+    """ColorJitter on one [0, 1] image (H, W, 3) with scalar factors, or on
+    a batch with (B,) factors; None skips that op.  Brightness, contrast
+    (against the image's mean grey), saturation, then :func:`adjust_hue`,
+    each clipped to [0, 1] but the hue."""
+    if x.ndim == 3:
+        return color_jitter(x[None], *(
+            None if f is None else torch.as_tensor(f).reshape(1)
+            for f in (brightness, contrast, saturation, hue)))[0]
+    return color_jitter_batch(x, brightness, contrast, saturation, hue)
+
+
+def scale_translate_weights(in_size: int, out_size: int,
+                            scale: torch.Tensor, translation: torch.Tensor,
+                            antialias: bool = True) -> torch.Tensor:
+    """(B, out, in) float32 resampling weights of
+    ``jax.image.scale_and_translate(method='linear')`` for per-image
+    ``scale`` and ``translation`` (B,): an output pixel o samples the
+    input at ``(o + 0.5 - translation) / scale - 0.5`` with a triangle
+    kernel widened by ``1 / scale`` when that is above 1 (``antialias``),
+    each row renormalized to sum 1 (rows summing to no more than 1000
+    float32 eps, and samples outside [-0.5, in - 0.5], weigh 0)."""
+    scale = scale.float()[:, None, None]
+    translation = translation.float()[:, None, None]
+    # a tensor divided by a tensor: ``1.0 / scale`` would multiply by a
+    # reciprocal, an ulp off the quotient
+    inv_scale = torch.ones_like(scale) / scale
+    kernel_scale = inv_scale.clamp_min(1.0) if antialias else 1.0
+    o = torch.arange(out_size, dtype=torch.float32,
+                     device=scale.device)[None, :, None]
+    sample = (o + 0.5) * inv_scale - translation * inv_scale - 0.5
+    src = torch.arange(in_size, dtype=torch.float32,
+                       device=scale.device)[None, None, :]
+    wts = (1.0 - ((sample - src).abs() / kernel_scale).abs()).clamp_min(0.0)
+    total = wts.sum(dim=2, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    wts = torch.where(total.abs() > eps,
+                      wts / torch.where(total != 0, total, 1.0),
+                      torch.zeros((), device=wts.device))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside, wts, torch.zeros((), device=wts.device))
+
+
+def random_resized_crop(x: torch.Tensor, area: torch.Tensor,
+                        log_ratio: torch.Tensor, top: torch.Tensor,
+                        left: torch.Tensor, out_size: int,
+                        antialias: bool = True) -> torch.Tensor:
+    """RandomResizedCrop of each float image of (B, H, W, C) -> (B, out,
+    out, C), float32.
+
+    Per image: a crop of ``area`` times the image's area and aspect
+    ``exp(log_ratio)`` (w / h), clamped into the image, its corner at
+    ``top`` and ``left`` (in [0, 1]) of the room left, resampled to
+    ``out_size`` with :func:`scale_translate_weights` (bilinear,
+    antialiased when the crop is larger than the output)."""
+    b, h, w, c = x.shape
+    area_px = h * w * area.float()
+    aspect = torch.exp(log_ratio.float())
+    cw = torch.sqrt(area_px * aspect).clamp(1.0, float(w))
+    ch = torch.sqrt(area_px / aspect).clamp(1.0, float(h))
+    top_px = top.float() * (h - ch)
+    left_px = left.float() * (w - cw)
+    out_t = torch.full_like(ch, float(out_size))
+    scale_y, scale_x = out_t / ch, out_t / cw  # quotients, as above
+    wy = scale_translate_weights(h, out_size, scale_y, -top_px * scale_y,
+                                 antialias)
+    wx = scale_translate_weights(w, out_size, scale_x, -left_px * scale_x,
+                                 antialias)
+    # rows: (B, out, H) @ (B, H, W*C); columns against the W axis
+    tmp = torch.bmm(wy, x.float().reshape(b, h, w * c))
+    tmp = tmp.reshape(b, out_size, w, c).permute(0, 2, 1, 3)
+    out = torch.bmm(wx, tmp.reshape(b, w, out_size * c))
+    return out.reshape(b, out_size, out_size, c).permute(0, 2, 1,
+                                                         3).contiguous()
+
+
+@dataclasses.dataclass
+class SampleDraws:
+    """The per-image random choices of one :func:`augment_batch` call, (B,)
+    tensors; None where the intensity draws none.
+
+    ``hflip``/``vflip``: flips; ``area``: the crop's share of the image's
+    area; ``log_ratio``: the log of its aspect (w / h); ``top``/``left``:
+    its corner as a fraction of the room left; ``brightness``/
+    ``contrast``/``saturation``: jitter factors; ``hue``: shift in turns;
+    ``angles``: rotation in degrees."""
+
+    hflip: torch.Tensor
+    vflip: Optional[torch.Tensor] = None
+    area: Optional[torch.Tensor] = None
+    log_ratio: Optional[torch.Tensor] = None
+    top: Optional[torch.Tensor] = None
+    left: Optional[torch.Tensor] = None
+    brightness: Optional[torch.Tensor] = None
+    contrast: Optional[torch.Tensor] = None
+    saturation: Optional[torch.Tensor] = None
+    hue: Optional[torch.Tensor] = None
+    angles: Optional[torch.Tensor] = None
+
+
+def sample_per_image_draws(generator: torch.Generator, batch: int,
+                           intensity: str) -> SampleDraws:
+    """Draw :func:`augment_batch`'s choices from ``generator`` with the
+    JAX package's per-image laws: hflip p=0.5; 'medium' and 'high' a crop
+    area ~ U(0.8, 1) or U(0.7, 1), log aspect ~ U(log 3/4, log 4/3),
+    corner fractions ~ U(0, 1), jitter factors ~ U(1 - v, 1 + v) with v
+    0.1 or 0.2; 'high' also vflip p=0.2, hue ~ U(-0.1, 0.1) turns and an
+    angle ~ U(-15, 15) degrees."""
+    if intensity not in _LAWS:
+        raise ValueError(f"unknown intensity: {intensity}")
+    scale, jit, hue, p_v, deg = _LAWS[intensity]
+    dev = generator.device
+    draws = SampleDraws(
+        hflip=torch.rand(batch, generator=generator, device=dev) < 0.5)
+    if scale is None:
+        return draws
+    if p_v > 0:
+        draws.vflip = torch.rand(batch, generator=generator,
+                                 device=dev) < p_v
+    draws.area = _uniform(generator, (batch,), scale[0], scale[1])
+    draws.log_ratio = _uniform(generator, (batch,), math.log(RRC_RATIO[0]),
+                               math.log(RRC_RATIO[1]))
+    draws.top = _uniform(generator, (batch,), 0.0, 1.0)
+    draws.left = _uniform(generator, (batch,), 0.0, 1.0)
+    lo, hi = max(0.0, 1.0 - jit), 1.0 + jit
+    draws.brightness = _uniform(generator, (batch,), lo, hi)
+    draws.contrast = _uniform(generator, (batch,), lo, hi)
+    draws.saturation = _uniform(generator, (batch,), lo, hi)
+    if hue > 0:
+        draws.hue = _uniform(generator, (batch,), -hue, hue)
+    if deg > 0:
+        draws.angles = _uniform(generator, (batch,), -deg, deg)
+    return draws
+
+
+def augment_batch(images_u8: torch.Tensor, draws: SampleDraws,
+                  intensity: str = "medium", out_size: int = 224,
+                  dtype=torch.bfloat16,
+                  mean: Sequence[float] = IMAGENET_MEAN,
+                  std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
+    """Augment and normalize a (B, H, W, 3) uint8 batch image by image, in
+    float32, with the given draws -> (B, out, out, 3) ``dtype``:
+
+        low:    HFlip -> CenterCrop
+        medium: HFlip -> RandomResizedCrop(0.8-1.0) -> ColorJitter(0.1)
+        high:   HFlip -> VFlip -> RRC(0.7-1.0) -> ColorJitter(0.2, hue 0.1)
+                -> RandomRotation(15, nearest)
+    """
+    if intensity not in _LAWS:
+        raise ValueError(f"unknown intensity: {intensity}")
+    x = images_u8.float() / 255.0
+    x = torch.where(draws.hflip[:, None, None, None], x.flip(2), x)
+    if intensity == "low":
+        x = center_crop(x, out_size)
+    else:
+        if intensity == "high":
+            x = torch.where(draws.vflip[:, None, None, None], x.flip(1), x)
+        x = random_resized_crop(x, draws.area, draws.log_ratio, draws.top,
+                                draws.left, out_size)
+        x = color_jitter(x, draws.brightness, draws.contrast,
+                         draws.saturation, draws.hue)
+        if intensity == "high":
+            x = rotate(x, draws.angles)
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return ((x - mean_t) / std_t).to(dtype).contiguous()

@@ -1,1 +1,1 @@
-"""Utilities: figures."""
+"""Utilities: figures, device memory and profiling."""

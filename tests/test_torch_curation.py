@@ -144,3 +144,34 @@ def test_load_image_dir_cache(raw_tree):
     assert list(cached.class_names) == sorted(CLASSES)
     assert list(np.bincount(cached.labels)) == [8, 8, 8]
     assert cached.images.std() > 0  # decoded, not zeros
+
+
+def test_report_renderers_match_the_jax_package(raw_tree, tmp_path, capsys):
+    """render_analysis_markdown and display_dataset_report against the JAX
+    package's on the same tree: the same Markdown, the same printed
+    report and report file, equal tables; the sample grid drawn."""
+    src = os.path.join(raw_tree, "raw")
+    got, want = curation.analyze_dataset(src), jax_curation.analyze_dataset(
+        src)
+    assert curation.render_analysis_markdown(got, "grid.png") == \
+        jax_curation.render_analysis_markdown(want, "grid.png")
+    outs, printed = {}, {}
+    for name, pkg, analysis in (("port", curation, got),
+                                ("jax", jax_curation, want)):
+        d = tmp_path / name
+        d.mkdir()
+        outs[name] = pkg.display_dataset_report(
+            analysis, report_path=str(d / "report.txt"),
+            sample_grid_path=str(d / "samples.png"))
+        printed[name] = capsys.readouterr().out
+    assert printed["port"] == printed["jax"] and "cat" in printed["port"]
+    port, jax_out = outs["port"], outs["jax"]
+    assert set(port) == set(jax_out) == {"class_table", "quality_table",
+                                         "report_path", "sample_grid_path"}
+    assert port["class_table"].equals(jax_out["class_table"])
+    assert port["quality_table"].equals(jax_out["quality_table"])
+    with open(port["report_path"], "rb") as a, \
+            open(jax_out["report_path"], "rb") as b:
+        assert a.read() == b.read()
+    with Image.open(port["sample_grid_path"]) as img:
+        assert img.size[0] > 0 and img.size[1] > 0

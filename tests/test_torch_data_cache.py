@@ -21,6 +21,7 @@ from irp_tpu.data import tar as jax_tar
 from irp_tpu_torch.data import analyze, kfold, pipeline
 from irp_tpu_torch.data import tar as torch_tar
 from tests.synth import make_synthetic_shards
+from tests.torch_native import needs_native_decoder
 
 torch.set_num_threads(1)
 SIZE = 64
@@ -164,14 +165,43 @@ def test_subset_by_shards_equals_jax(shards, with_images):
         assert a.images is None and b.images is None
 
 
+@needs_native_decoder
 def test_the_native_decoder_is_refused_not_swapped(shards, monkeypatch):
+    """``use_native=True`` and ``IRP_NATIVE_DECODE=1`` build the native
+    cache (one native call per shard, the JAX package's images); a
+    caller's own decoder is never swapped for the native one."""
+    from irp_tpu_torch.data import jpeg
+
     names = analyze.analyze_webdataset(shards).class_names
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.build_cache(shards[:1], names, use_native=True)
+    size = 48  # resized, so that native and PIL pixels can differ
+    batches = []
+    native = jpeg.decode_batch_native
+
+    def spy(blobs, out_size):
+        batches.append(len(blobs))
+        return native(blobs, out_size)
+
+    monkeypatch.setattr(jpeg, "decode_batch_native", spy)
+    want = jax_pipeline.build_cache(shards[:2], names, size=size,
+                                    use_native=True)
+    got = pipeline.build_cache(shards[:2], names, size=size,
+                               use_native=True)
+    assert batches == [6, 6]
+    assert got.keys == want.keys and len(got) == 12
+    np.testing.assert_array_equal(got.images, want.images)
     monkeypatch.setenv("IRP_NATIVE_DECODE", "1")
-    with pytest.raises(NotImplementedError, match="IRP_NATIVE_DECODE"):
-        pipeline.build_cache(shards[:1], names)
-    # a caller's own decoder is not the native one
-    got = pipeline.build_cache(shards[:1], names, size=SIZE,
-                               decoder=pipeline.decode_to_rgb256)
-    assert len(got) == 6
+    by_env = pipeline.build_cache(shards[:2], names, size=size)
+    assert batches == [6, 6, 6, 6]
+    np.testing.assert_array_equal(by_env.images, want.images)
+    # a caller's own decoder takes precedence over the environment
+    calls = []
+
+    def own(jpg, out_size):
+        calls.append(out_size)
+        return pipeline.decode_to_rgb256(jpg, out_size)
+
+    mine = pipeline.build_cache(shards[:2], names, size=size, decoder=own)
+    assert len(mine) == 12 and calls == [size] * 12 and len(batches) == 4
+    np.testing.assert_array_equal(
+        mine.images, jax_pipeline.build_cache(shards[:2], names, size=size,
+                                              use_native=False).images)

@@ -35,6 +35,7 @@ from irp_tpu_torch.cli import predict_cli
 from irp_tpu_torch.config import ModelConfig
 from irp_tpu_torch.data.tar import ShardWriter, TarWriter
 from tests.synth import make_synthetic_shards
+from tests.torch_native import needs_native_decoder
 
 torch.set_num_threads(1)
 CROP, SIZE = 56, 64
@@ -237,30 +238,56 @@ def test_predict_paths_and_shards_equal_jax(world, monkeypatch):
     pred, jpred = _predictors(world)
     paths = sorted(os.path.join(r, f) for r, _, fs in os.walk(
         world["images"]) for f in fs)
-    decoded = pred.decode_paths(paths)
+    # PIL on both sides (the 'auto' case is the test below)
+    decoded = pred.decode_paths(paths, decoder="pil")
     assert decoded.shape == (8, 256, 256, 3)
-    # the port's 'auto' decodes with PIL; the JAX package's may take its
-    # native decoder, which differs by up to 1/255
     assert np.array_equal(decoded, jpred.decode_paths(paths, decoder="pil"))
-    got = pred.predict_paths(paths)
+    got = pred.predict_paths(paths, decoder="pil")
     want = jpred.predict_paths(paths, decoder="pil")
     assert got.keys == want.keys == paths
     assert np.array_equal(got.labels, want.labels)
     assert np.abs(got.probs - want.probs).max() <= PROB_TOL
     # streamed in chunks, the same result
     monkeypatch.setattr(infer.Predictor, "_chunk", lambda self: 3)
-    chunked = pred.predict_paths(paths)
+    chunked = pred.predict_paths(paths, decoder="pil")
     assert np.array_equal(chunked.probs, got.probs)
     for chunk in (3, 1024):
         monkeypatch.setattr(infer.Predictor, "_chunk",
                             lambda self, c=chunk: c)
-        (res, truth) = pred.predict_shards(world["shards"])
+        (res, truth) = pred.predict_shards(world["shards"], decoder="pil")
         (jres, jtruth) = jpred.predict_shards(world["shards"],
                                               decoder="pil")
         assert res.keys == jres.keys == [f"s{i:03d}" for i in range(9)]
         assert np.array_equal(truth, jtruth)
         assert np.array_equal(res.labels, jres.labels)
         assert np.abs(res.probs - jres.probs).max() <= PROB_TOL
+
+
+@needs_native_decoder
+def test_predict_paths_and_shards_auto_decoder_equal_jax(world,
+                                                         monkeypatch):
+    """At both packages' default decoder, 'auto': the native batch decoder
+    with PIL for what it cannot decode, the same pixels in both."""
+    from irp_tpu_torch.data import jpeg
+
+    assert jpeg.native_decoder_available(), jpeg.build_log_tail()
+    pred, jpred = _predictors(world)
+    paths = sorted(os.path.join(r, f) for r, _, fs in os.walk(
+        world["images"]) for f in fs)
+    decoded = pred.decode_paths(paths)
+    assert np.array_equal(decoded, jpred.decode_paths(paths))
+    assert np.abs(decoded.astype(int) - pred.decode_paths(
+        paths, decoder="pil").astype(int)).max() <= 1
+    got, want = pred.predict_paths(paths), jpred.predict_paths(paths)
+    assert got.keys == want.keys == paths
+    assert np.array_equal(got.labels, want.labels)
+    assert np.abs(got.probs - want.probs).max() <= PROB_TOL
+    monkeypatch.setattr(infer.Predictor, "_chunk", lambda self: 3)
+    (res, truth) = pred.predict_shards(world["shards"])
+    (jres, jtruth) = jpred.predict_shards(world["shards"])
+    assert res.keys == jres.keys and np.array_equal(truth, jtruth)
+    assert np.array_equal(res.labels, jres.labels)
+    assert np.abs(res.probs - jres.probs).max() <= PROB_TOL
 
 
 def test_predict_shards_literal_paths_and_globs(world, tmp_path):

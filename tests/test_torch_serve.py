@@ -25,6 +25,7 @@ from irp_tpu_torch.config import ModelConfig
 from irp_tpu_torch.data.pipeline import decode_blobs
 from irp_tpu_torch.infer import make_predictor
 from irp_tpu_torch.serve import MicroBatcher, make_server
+from tests.torch_native import needs_native_decoder
 
 torch.set_num_threads(1)
 
@@ -102,8 +103,21 @@ def test_predict_matches_jax_predictor(server, predictors):
 
 
 def test_decode_matches_jax_decoder():
+    """'pil' against the JAX package's PIL decoder."""
     blob = _jpeg(5, size=130)
-    np.testing.assert_array_equal(decode_blobs([blob])[0], jax_decode(blob))
+    np.testing.assert_array_equal(decode_blobs([blob], decoder="pil")[0],
+                                  jax_decode(blob))
+
+
+@needs_native_decoder
+def test_decode_auto_matches_jax_decode_blobs():
+    """'auto', the daemon's default (native, PIL for what it cannot
+    decode), against the JAX package's ``decode_blobs``."""
+    from irp_tpu.data.pipeline import decode_blobs as jax_decode_blobs
+
+    blob = _jpeg(5, size=130)
+    np.testing.assert_array_equal(decode_blobs([blob]),
+                                  jax_decode_blobs([blob]))
 
 
 def test_healthz_stats_metrics(server):
