@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving (with Grad-CAM, hot reload and the
 exported artifact, for all four model families), curation, benchmark,
 training, sweep, final-training, batch-prediction, native-decode,
-fidelity and monitor paths once on one NVIDIA GPU.
+fidelity, monitor and data-parallel paths once on one NVIDIA GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
@@ -14,6 +14,7 @@ fidelity and monitor paths once on one NVIDIA GPU.
   python3 chip_smoke.py --phases device,build,final
   python3 chip_smoke.py --phases device,build,decode,fidelity,monitor
   python3 chip_smoke.py --phases device,build,profile
+  python3 chip_smoke.py --phases device,build,parallel
 
 Phases, each printing one JSON line:
 
@@ -236,7 +237,46 @@ Phases, each printing one JSON line:
 15. monitor — device_memory_stats on the card (in-use, peak and limit GB)
               and a profile_trace around one predict batch, whose Chrome
               trace must name K2's kernel.
-16. profile — only when named in --phases: torch.profiler over batches
+16. parallel — data parallelism at ResNet50/224 bf16 'auto' (10 classes,
+              hidden 512, random weights from the seed): (1) fit, 2 epochs
+              of 4 steps at B=32 with eval on 128, over an NCCL process
+              group of one rank on cuda:0 against the same fit without a
+              group (bit-equal: PAR_TOL's world-1 bars are 0), K1 and K2
+              launches equal; (2) two processes of this script
+              (--two-rank-worker), ranks 0 and 1 over gloo sharing cuda:0
+              (NCCL refuses two ranks on one device), at global B=64, 32
+              a rank: fit in stream mode (Adam, 2 x 4 steps, eval on
+              128) and one SGD train_step with mixup 0.4 and class
+              weights on a given global batch (sorted by label: the ranks
+              hold different classes) and draws, each in bfloat16 and in
+              float32 ('highest', unfused), against one process at B=64
+              on the same global batch and draws (rows ordered so that
+              its reversed batch pairs within each half): the ranks'
+              weights bit-equal; the SGD step's loss, layer4/head update
+              and BN running-statistic gaps within PAR_TOL or PAR_FLOOR_X
+              times the gap of the reference run again (the card's
+              run-to-run floor), and the same step with a fault planted
+              in the ranks (PAR_FAULTS: each rank's own BN moments; in
+              f32 also each rank's own loss denominator, gradients
+              averaged) outside that limit; the fits' gaps printed, not
+              gated; each rank's step ms printed as a host figure; (3)
+              two replicas (replicate_predictor on [cuda:0, cuda:0]) behind
+              make_server, 2 rounds of 64 JPEGs from 8 clients: no failed
+              request, both replicas dispatched (/stats per_replica), the
+              answers equal to the single predictor's to the 6 decimals
+              HTTP carries and each replica's probabilities bit-equal, K2
+              once and K1 10 times a batch; images/s of rounds in turns
+              with the one-replica daemon; (4) a local mesh [cuda:0,
+              cuda:0]: Predictor(mesh=) at batch 256 and
+              extract_features(mesh=) at 64 over 1,024 images against the
+              unsharded paths (within PAR_PRED_TOL), K2 once per part, and
+              predict_cli --data-parallel on the card's default mesh (one
+              device) writing the CSV the run without it writes; (5) 2
+              quick trials (k = 2, 512 JPEGs) on two sweep workers
+              sharing cuda:0 and in sequence: every trial COMPLETE or
+              PRUNED, the pools released, wall seconds of each in turns
+              (sequential, two workers, two workers, sequential).
+17. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
               at B=32 split by CUDA events into augmentation, frozen
@@ -283,7 +323,7 @@ from irp_tpu_torch.tools.bench_fused_block import (bound, gpu_ms, k1_bound,
 PEAK_FP32_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PHASES = ("device", "build", "kernels", "serve", "explain", "families",
           "curation", "bench", "train", "families_train", "hyperopt",
-          "final", "decode", "fidelity", "monitor")
+          "final", "decode", "fidelity", "monitor", "parallel")
 EXTRA_PHASES = ("profile",)  # run only when named
 # (name, H, W, C, M, blocks per ResNet50 forward)
 BOTTLENECK_SHAPES = (("layer1", 56, 56, 256, 64, 2),
@@ -3966,6 +4006,694 @@ def _f64(cfg):
     return dataclasses.replace(_f32(cfg), compute_dtype="float64")
 
 
+# The parallel phase (data parallelism, ROADMAP A14a): ResNet50/224 bf16,
+# K1 'auto', 10 classes, hidden 512, weights random from the seed.
+PAR_STEPS, PAR_EPOCHS = 4, 2  # each compared fit; step ms from its last
+# epoch (its first carries the process's warm-up)
+PAR_TRAIN, PAR_VAL = 1024, 128  # class-pattern images of those fits
+PAR_B1, PAR_B2 = 32, 64  # world 1's batch; the two ranks' global batch
+PAR_MIXUP = 0.4  # the gated SGD step's mixup
+PAR_N = 1024  # images through the local mesh's Predictor and extraction
+PAR_SWEEP_SHARDS, PAR_SWEEP_TRIALS, PAR_SWEEP_K = 2, 2, 2  # 512 JPEGs
+PAR_TIMEOUT_S = 600  # each rank process of the two-rank runs
+# Gaps of a compared run from its reference: the losses' relative gap
+# ('loss'); the parameter updates' relative L2 gap over layer4 and the
+# head, |(got - init) - (want - init)| / |want - init| ('update');
+# max|got - want| / max|want| over layer4's BN running statistics
+# ('bn').  Each reference runs twice, and the rerun's gap from the first
+# is the card's own run-to-run floor.  A gated run passes when each gap
+# is within PAR_FLOOR_X times its floor or within its bar in PAR_TOL,
+# whichever is larger.
+#
+# World 1 (an NCCL group of one rank against no group) is bit-equal, so
+# its bars are 0.  The two-rank fits are Adam's: its first steps move
+# each weight by about lr whatever its gradient's size, so rounding that
+# turns a near-0 gradient over flips a whole update, and their gaps are
+# of the size of their rerun floor; they are printed, not gated.  The
+# gate is one SGD step (its update is linear in the gradients) with
+# mixup and class weights on a global batch sorted by label, so that the
+# ranks hold different classes.  Every run plants faults in the ranks'
+# step (PAR_FAULTS: 'bn', each rank's own BN moments; 'denom', each
+# rank's own loss denominator with the gradients averaged) and fails
+# unless each planted run's largest gap ratio (gap / limit) exceeds 1.
+# One step, not several: a later step's forward carries the first
+# update's rounding; three steps read f32 gaps 8-55x their rerun floor,
+# and the denominator fault's update gap only 10x the clean run's.
+# Readings of one step (NVIDIA H100 80GB HBM3, 700.00 W, seed 0; the
+# runs are named in PERF.md section 6; loss / update / BN): f32
+# clean 1.72e-7 / 0.00204 / 8.52e-7 on a floor of 0 / 1.41e-6 / 0, the
+# BN fault 2.76e-4 / 0.315 / 0.0286, the denominator fault 3.73e-4 /
+# 0.0290 / 8.52e-7; bf16 clean 4.47e-4 / 0.143 / 6.50e-4 on a floor of
+# 0, the BN fault 3.15e-4 / 0.314 / 0.0295, the denominator fault
+# 1.07e-4 / 0.146 / 6.50e-4, which bf16's own rounding between B=32
+# and B=64 hides, so bf16 plants only the BN fault.  Each bar lies
+# between the clean reading and the nearest planted one (f32 loss 58x /
+# 28x, update 3.9x / 3.6x, BN 117x / 286x; bf16 BN 6.2x / 7.4x) or,
+# where no fault moves that gap, at 2.1-4.5x the clean reading.
+PAR_FLOOR_X = 3.0
+PAR_TOL = {"world1": {"loss": 0.0, "update": 0.0, "bn": 0.0},
+           "step_float32": {"loss": 1e-5, "update": 8e-3, "bn": 1e-4},
+           "step_bfloat16": {"loss": 2e-3, "update": 0.3, "bn": 4e-3}}
+PAR_DTYPES = ("float32", "bfloat16")
+PAR_FAULTS = {"float32": ("bn", "denom"), "bfloat16": ("bn",)}
+PAR_PRED_TOL = 2.0 ** -5  # sharded against unsharded, max|diff| / max|ref|
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cpu_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def _par_gaps(got: dict, want: dict, init: dict, got_loss,
+              want_loss) -> dict:
+    """Gaps of a run from its reference (PAR_TOL's comment says which)."""
+    stats = ("running_mean", "running_var")
+    params = [k for k in want if k.startswith(("backbone.layer4",
+                                               "classifier."))
+              and not k.endswith(stats + ("num_batches_tracked",))]
+    d_got = torch.cat([(got[k] - init[k]).double().ravel() for k in params])
+    d_want = torch.cat([(want[k] - init[k]).double().ravel()
+                        for k in params])
+    bn = max(float((got[k].double() - want[k].double()).abs().max()
+                   / want[k].double().abs().max())
+             for k in want if k.startswith("backbone.layer4")
+             and k.endswith(stats))
+    g, w = np.asarray(got_loss, float), np.asarray(want_loss, float)
+    return {"loss": float(np.max(np.abs(g - w) / np.abs(w))),
+            "update": float((d_got - d_want).norm() / d_want.norm()),
+            "bn": bn}
+
+
+def _par_init(seed: int) -> dict:
+    """The seed's initial weights, as fit and the step runs draw them."""
+    from irp_tpu_torch.models.classifier import init_classifier
+
+    return _cpu_state(init_classifier(_train_model_cfg(),
+                                      torch.Generator().manual_seed(seed),
+                                      device="cpu"))
+
+
+def _par_world1(seed: int, train, val, info) -> dict:
+    """fit at B=32 without a group, the same fit over an NCCL process
+    group of one rank on cuda:0, and the fit without a group again (the
+    floor)."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.parallel import distributed
+    from irp_tpu_torch.parallel.mesh import make_mesh
+    from irp_tpu_torch.train import fit
+
+    cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    tc = TrainConfig(batch_size=PAR_B1, max_epochs=PAR_EPOCHS, patience=99,
+                     seed=seed, steps_per_epoch_override=PAR_STEPS,
+                     eval_samples=PAR_VAL)
+    runs = {}
+    for name in ("no_group", "nccl_world1", "no_group_again"):
+        mesh = None
+        if name == "nccl_world1":
+            distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                                   device="cuda:0")
+            mesh = make_mesh()
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = fit(train, val, info, cfg, tc, mesh=mesh)
+            torch.cuda.synchronize()
+            backend = (torch.distributed.get_backend() if mesh is not None
+                       else None)
+        finally:
+            if mesh is not None:
+                distributed.shutdown()
+        after = _launch_counts()
+        runs[name] = {
+            "seconds": time.perf_counter() - t0, "backend": backend,
+            "history": res.history, "state": _cpu_state(res.state.model),
+            "launches": {k: after[k] - before[k] for k in after}}
+    init = _par_init(seed)
+
+    def gaps(name):
+        a, b = runs[name], runs["no_group"]
+        return _par_gaps(a["state"], b["state"], init,
+                         a["history"]["train_loss"] + a["history"]["val_loss"],
+                         b["history"]["train_loss"] + b["history"]["val_loss"])
+
+    return {"gaps": gaps("nccl_world1"), "floor": gaps("no_group_again"),
+            "backend": runs["nccl_world1"]["backend"],
+            "launches": {k: v["launches"] for k, v in runs.items()},
+            "seconds": {k: v["seconds"] for k, v in runs.items()},
+            "train_loss": {k: v["history"]["train_loss"]
+                           for k, v in runs.items()},
+            "step_ms": {k: v["history"]["train_ms"][-1] / PAR_STEPS
+                        for k, v in runs.items()}}
+
+
+def _par_pairing_order(b: int) -> torch.Tensor:
+    """The row order under which one process's reversed batch pairs rows
+    as two ranks' reversed halves do: positions r and b-1-r hold a row
+    and its partner within its half."""
+    h, q = b // 2, b // 4
+    return torch.cat([torch.arange(0, q), torch.arange(h, h + q),
+                      torch.arange(h + q, b), torch.arange(q, h)])
+
+
+@contextlib.contextmanager
+def _par_fault(fault: str, model, mesh):
+    """A planted fault of data parallelism, for the gate to catch: 'bn',
+    each rank's own BN moments; 'denom', each rank's own loss
+    denominator with the gradients averaged (a plain DDP mean); 'none',
+    the program as it is."""
+    from irp_tpu_torch.models.resnet import sync_batch_stats
+    from irp_tpu_torch.train import step
+
+    if fault == "bn":
+        sync_batch_stats(model, None)
+        yield
+        return
+    if fault != "denom":
+        yield
+        return
+    own = step._denominator
+
+    def per_rank(labels, class_weights, m):
+        return own(labels, class_weights, None) * m.size
+
+    step._denominator = per_rank
+    try:
+        yield
+    finally:
+        step._denominator = own
+
+
+def _par_step(seed: int, mesh, train, info, dtype: str,
+              fault: str = "none") -> dict:
+    """One SGD train_step with mixup and class weights on a given global
+    batch (sorted by label, so the ranks hold different classes) and
+    given global draws; on a rank of ``mesh`` its rows, or with ``mesh``
+    None the whole batch in the order _par_pairing_order gives, draws
+    with it."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.models.classifier import init_classifier
+    from irp_tpu_torch.models.resnet import sync_batch_stats
+    from irp_tpu_torch.ops.mix import sample_mix_draws
+    from irp_tpu_torch.ops.preprocess import sample_augment_draws
+    from irp_tpu_torch.parallel.mesh import shard_variables
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.state import create_train_state
+    from irp_tpu_torch.train.step import StepConfig, train_step
+
+    dev = torch.device("cuda:0")
+    cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    mcfg = cfg if dtype == "bfloat16" else _f32(cfg)
+    model = init_classifier(mcfg, torch.Generator().manual_seed(seed),
+                            device=dev)
+    if mesh is not None:
+        [model] = shard_variables(mesh, model)
+        sync_batch_stats(model, mesh.group)
+    set_mode(model, True)
+    state = create_train_state(
+        model, TrainConfig(seed=seed, optimizer="sgd", learning_rate=0.1,
+                           schedule="constant"), mcfg)
+    scfg = StepConfig(intensity="medium", out_size=TRAIN_IMAGE_SIZE,
+                      compute_dtype=getattr(torch, dtype),
+                      mixup_alpha=PAR_MIXUP, dropout_rate=mcfg.dropout_rate)
+    rows = np.argsort(train.labels[:PAR_B2], kind="stable")
+    images = torch.from_numpy(train.images[rows]).to(dev)
+    labels = torch.from_numpy(train.labels[rows]).long().to(dev)
+    draws = sample_augment_draws(torch.Generator().manual_seed(seed),
+                                 PAR_B2, 256, 256, "medium").to(dev)
+    mix = sample_mix_draws(np.random.default_rng(seed), PAR_MIXUP, 0.0,
+                           TRAIN_IMAGE_SIZE, TRAIN_IMAGE_SIZE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    drop = tuple(torch.rand((PAR_B2, w), generator=gen, device=dev)
+                 < 1.0 - mcfg.dropout_rate
+                 for w in (model.backbone.num_features, mcfg.hidden_dim))
+    if mesh is not None:
+        [mine] = mesh.rows(PAR_B2)
+        images, labels = images[mine], labels[mine]
+    else:
+        order = _par_pairing_order(PAR_B2).to(dev)
+        images, labels = images[order], labels[order]
+        draws = draws.rows(order)
+        drop = tuple(m[order] for m in drop)
+    cw = torch.tensor(info.class_weights, dtype=torch.float32, device=dev)
+    with _par_fault(fault, model, mesh):
+        m = train_step(state, images, labels, scfg, cw, aug_draws=draws,
+                       mix_draws=mix, dropout_masks=drop, mesh=mesh)
+    return {"losses": [float(m["loss"])], "state": _cpu_state(model)}
+
+
+def _par_runs(seed: int, mesh) -> dict:
+    """The two-rank runs, on a rank of ``mesh`` (a process mesh of two
+    ranks on cuda:0) or, with ``mesh`` None, in one process on the whole
+    global batch: fit in stream mode at global B=64, PAR_STEPS steps a
+    epoch, eval on PAR_VAL, then _par_step, each in bfloat16 (K1
+    'auto') and float32 ('highest', unfused); on a rank, _par_step
+    again with each of PAR_FAULTS planted.  The launches are
+    the fits' and the unplanted steps'."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.train import fit
+
+    dev = torch.device("cuda:0")
+    train, val, info = _train_sets(seed, PAR_TRAIN, PAR_VAL)
+    out = {}
+    _zero_launch_counts()
+    cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    tc = TrainConfig(batch_size=PAR_B2, max_epochs=PAR_EPOCHS, patience=99,
+                     seed=seed, steps_per_epoch_override=PAR_STEPS,
+                     eval_samples=PAR_VAL)
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        res = fit(train, val, info, cfg if dtype == "bfloat16" else _f32(cfg),
+                  tc, mode="stream", mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        out[f"fit_{dtype}"] = {
+            "seconds": time.perf_counter() - t0, "history": res.history,
+            "step_ms": res.history["train_ms"][-1] / PAR_STEPS,
+            "state": _cpu_state(res.state.model)}
+    for dtype in PAR_DTYPES:
+        out[f"step_{dtype}"] = _par_step(seed, mesh, train, info, dtype)
+    torch.cuda.synchronize()
+    out["launches"] = _launch_counts()
+    if mesh is not None:
+        for dtype in PAR_DTYPES:
+            for fault in PAR_FAULTS[dtype]:
+                out[f"step_{dtype}_{fault}"] = _par_step(
+                    seed, mesh, train, info, dtype, fault)
+    return out
+
+
+def _two_rank_worker(rank: int, port: int, work: str, seed: int) -> None:
+    """One rank of the two-rank runs: a gloo group of two processes that
+    share cuda:0 (NCCL refuses two ranks on one device)."""
+    from irp_tpu_torch.parallel import distributed
+    from irp_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(f"localhost:{port}", 2, rank, device="cuda:0",
+                           backend="gloo")
+    try:
+        out = _par_runs(seed, make_mesh())
+        out["backend"] = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+    torch.save(out, f"{work}/rank{rank}.pt")
+
+
+def _par_two_ranks(seed: int, work: str) -> dict:
+    """Two processes of this script, ranks 0 and 1 over gloo on cuda:0,
+    then the one-process reference at the global batch, twice (the
+    floor)."""
+    port = _free_port()
+    t0 = time.perf_counter()
+    logs = [open(f"{work}/rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--two-rank-worker",
+         str(r), "--port", str(port), "--work", work, "--seed", str(seed)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=PAR_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"{work}/rank{r}.log") as f:
+                tail = f.read()[-3000:]
+            print(tail, file=sys.stderr, flush=True)
+            raise RuntimeError(f"rank {r} exited {p.returncode}")
+    ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    ref = _par_runs(seed, None)
+    ref_s = time.perf_counter() - t0
+    again = _par_runs(seed, None)  # the floor
+    init = _par_init(seed)
+    report = {"backend": ranks[0]["backend"], "ranks_wall_s": ranks_s,
+              "reference_wall_s": ref_s, "gaps": {}, "floor": {},
+              "planted": {}, "ranks_bit_equal": {},
+              "step_ms": {name: {r: run[f"fit_{dtype}"]["step_ms"]
+                                 for r, run in (("rank0", ranks[0]),
+                                                ("rank1", ranks[1]),
+                                                ("one_process", ref))}
+                          for name, dtype in (("bf16", "bfloat16"),
+                                              ("f32", "float32"))},
+              "launches": {"rank0": ranks[0]["launches"],
+                           "rank1": ranks[1]["launches"],
+                           "one_process": ref["launches"]}}
+
+    def losses(run, key):
+        if key.startswith("fit"):
+            return run[key]["history"]["train_loss"] + \
+                run[key]["history"]["val_loss"]
+        return run[key]["losses"]
+
+    def gaps(run, key, ref_key):
+        return _par_gaps(run[key]["state"], ref[ref_key]["state"], init,
+                         losses(run, key), losses(ref, ref_key))
+
+    runs = [f"fit_{d}" for d in ("bfloat16", "float32")] + \
+        [f"step_{d}" for d in PAR_DTYPES]
+    for key in runs:
+        report["gaps"][key] = gaps(ranks[0], key, key)
+        report["floor"][key] = gaps(again, key, key)
+        report["ranks_bit_equal"][key] = all(
+            torch.equal(t, ranks[1][key]["state"][n])
+            for n, t in ranks[0][key]["state"].items())
+    for dtype in PAR_DTYPES:
+        for fault in PAR_FAULTS[dtype]:
+            report["planted"][f"step_{dtype}_{fault}"] = gaps(
+                ranks[0], f"step_{dtype}_{fault}", f"step_{dtype}")
+    return report
+
+
+def _http_round(url: str, blobs: list, errors: list):
+    """N_CLIENTS threads post ``blobs`` as JPEG bodies; (results, wall s)."""
+    results = [None] * len(blobs)
+
+    def client(idx: int) -> None:
+        for i in range(idx, len(blobs), N_CLIENTS):
+            try:
+                results[i] = _post(f"{url}/predict?topk={N_CLASSES}",
+                                   blobs[i], "image/jpeg")
+            except Exception as e:  # noqa: BLE001 — counted as failed
+                errors.append(f"request {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(N_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return results, time.perf_counter() - t0
+
+
+def _par_replicas(path: str, seed: int) -> dict:
+    """replicate_predictor on [cuda:0, cuda:0] behind make_server: 2
+    rounds of N_REQUESTS JPEGs from N_CLIENTS clients; then images/s of
+    rounds in turns with the one-replica daemon."""
+    from irp_tpu_torch.data.pipeline import decode_blobs
+    from irp_tpu_torch.infer import load_predictor, replicate_predictor
+    from irp_tpu_torch.serve import make_server
+
+    pred = load_predictor(path, batch_size=64, fused_frozen_blocks="auto")
+    replicas = replicate_predictor(pred, devices=["cuda:0", "cuda:0"])
+    blobs = _jpegs(seed + 3, N_REQUESTS)
+    errors, rounds, per_s = [], [], {"replicas": [], "one": []}
+
+    def serve(served):
+        server = make_server(served, port=0, window_ms=5.0)
+        for p in server.batcher.predictors:
+            p.predict_probs(np.zeros((64, 256, 256, 3), np.uint8))
+        torch.cuda.synchronize()
+        server.start()
+        return server, f"http://127.0.0.1:{server.port}"
+
+    server, url = serve(replicas)
+    before = _launch_counts()
+    for _ in range(2):
+        results, wall = _http_round(url, blobs, errors)
+        rounds.append(results)
+        per_s["replicas"].append(N_REQUESTS / wall)
+    after = _launch_counts()
+    with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+        stats = json.loads(r.read())
+    server.stop()
+    launches = {k: after[k] - before[k] for k in after}
+    # images/s in turns: one replica, two, two, one
+    for label in ("one", "replicas", "replicas", "one"):
+        server, url = serve(replicas if label == "replicas" else pred)
+        _, wall = _http_round(url, blobs, errors)
+        per_s[label].append(N_REQUESTS / wall)
+        server.stop()
+    images = decode_blobs(blobs)
+    want = pred.predict_probs(images)
+    want_rows = [[round(float(x), 6) for x in row] for row in want]
+    served_equal = True
+    for results in rounds:
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200:
+                served_equal = False
+                continue
+            got = [0.0] * N_CLASSES
+            for item in res[1]["predictions"][0]["topk"]:
+                got[item["label"]] = item["prob"]
+            served_equal &= got == want_rows[i]
+    direct = [bool(np.array_equal(r.predict_probs(images), want))
+              for r in replicas]
+    per = stats["per_replica"]
+    return {"requests": 2 * N_REQUESTS, "clients": N_CLIENTS,
+            "failed": len(errors), "errors": errors[:5],
+            "per_replica": per, "batches": stats["batches"],
+            "launches": launches, "images_per_s_in_turns": per_s,
+            "checks": {
+                "no_failed_request": not errors and all(
+                    r is not None and r[0] == 200
+                    for res in rounds for r in res),
+                "both_replicas_dispatched": len(per) == 2 and all(
+                    p["batches"] > 0 for p in per),
+                "served_equal_single_predictor_6_decimals": served_equal,
+                "replicas_bit_equal_single_predictor": all(direct),
+                "k2_once_per_batch": launches["eval_preprocess"]
+                == stats["batches"],
+                "k1_ten_per_batch": launches["identity_bottleneck"]
+                == 10 * stats["batches"]}}
+
+
+def _par_local_mesh(path: str, state_dict: dict, seed: int,
+                    tmp: str) -> dict:
+    """A local mesh of [cuda:0, cuda:0]: Predictor(mesh=) and
+    extract_features(mesh=) at N = PAR_N against the unsharded paths;
+    predict_cli --data-parallel on the card's default mesh against the
+    run without it."""
+    from irp_tpu_torch.cli import predict_cli
+    from irp_tpu_torch.data.outliers import extract_features
+    from irp_tpu_torch.data.pipeline import CachedDataset
+    from irp_tpu_torch.infer import load_predictor
+    from irp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(seed + 4)
+    images = rng.integers(0, 256, (PAR_N, 256, 256, 3), np.uint8)
+    single = load_predictor(path, batch_size=256,
+                            fused_frozen_blocks="auto")
+    sharded = load_predictor(path, batch_size=256,
+                             fused_frozen_blocks="auto", mesh=mesh)
+    report, launches = {}, {}
+    before = _launch_counts()
+    p_sh = sharded.predict_probs(images)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    launches["predictor"] = {k: after[k] - before[k] for k in after}
+    p_one = single.predict_probs(images)
+    report["predictor_max_abs_dprob"] = float(np.abs(p_sh - p_one).max())
+    cached = CachedDataset(images=images, labels=np.zeros(PAR_N, np.int32),
+                           keys=[str(i) for i in range(PAR_N)],
+                           class_names=tuple(f"class{c}"
+                                             for c in range(N_CLASSES)))
+    cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    before = _launch_counts()
+    f_sh, _, keys = extract_features(cached, cfg, batch_size=FEATURE_BATCH,
+                                     state_dict=state_dict, mesh=mesh)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    launches["extract_features"] = {k: after[k] - before[k] for k in after}
+    f_one, _, _ = extract_features(cached, cfg, batch_size=FEATURE_BATCH,
+                                   state_dict=state_dict, device="cuda")
+    report["features_rel_err"] = float(np.abs(f_sh - f_one).max()
+                                       / np.abs(f_one).max())
+    # predict_cli on the card's default mesh (every local card: one)
+    img_dir = f"{tmp}/images"
+    os.makedirs(img_dir)
+    for i, blob in enumerate(_jpegs(seed + 5, 256)):
+        with open(f"{img_dir}/img{i:04d}.jpg", "wb") as f:
+            f.write(blob)
+    rows, rcs = {}, {}
+    for flag in ((), ("--data-parallel",)):
+        csv_path = f"{tmp}/preds{len(flag)}.csv"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs[bool(flag)] = predict_cli.main([
+                "--weights", path, "--images", img_dir, "--out", csv_path,
+                "--batch-size", "64", "--fused-frozen-blocks", "auto",
+                *flag])
+        with open(csv_path) as f:
+            rows[bool(flag)] = list(csv.DictReader(f))
+    report.update(launches=launches, default_mesh_devices=len(
+        make_mesh().devices))
+    report["checks"] = {
+        "predictor_within_tol": report["predictor_max_abs_dprob"]
+        <= PAR_PRED_TOL,
+        "features_within_tol": report["features_rel_err"] <= PAR_PRED_TOL,
+        "feature_keys_in_order": keys == cached.keys,
+        "predictor_k2_once_per_part": launches["predictor"][
+            "eval_preprocess"] == 2 * PAR_N // 256,
+        "extract_k2_once_per_part": launches["extract_features"][
+            "eval_preprocess"] == 2 * PAR_N // FEATURE_BATCH,
+        "predict_cli_rc_0": rcs[False] == 0 and rcs[True] == 0,
+        "predict_cli_data_parallel_csv_equal": rows[False] == rows[True]
+        and len(rows[True]) == 256}
+    return report
+
+
+def _par_sweep(seed: int, tmp: str) -> dict:
+    """run_parallel_trials through the runner: PAR_SWEEP_TRIALS quick
+    trials (hyperopt_cli --quick's space, k = PAR_SWEEP_K) on two workers
+    sharing cuda:0 and in sequence, in turns (sequential, two, two,
+    sequential), each a study of its own."""
+    import dataclasses
+
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.config import HyperoptConfig, ModelConfig
+    from irp_tpu_torch.data.analyze import analyze_webdataset
+    from irp_tpu_torch.data.pipeline import build_cache
+    from irp_tpu_torch.hyperopt.objective import HyperoptContext, quick_space
+    from irp_tpu_torch.hyperopt.runner import run_kfold_optimization
+
+    shards = _write_shards(seed, f"{tmp}/shards", n_shards=PAR_SWEEP_SHARDS)
+    tracking.set_tracking_uri(f"{tmp}/mlruns")
+    tracking.set_experiment("parallel_sweep")
+    info = analyze_webdataset(shards)
+    cached = build_cache(shards, info.class_names, cache_dir=f"{tmp}/cache")
+    hcfg = HyperoptConfig(n_trials=PAR_SWEEP_TRIALS, k_folds=PAR_SWEEP_K,
+                          first_fold_min_acc=0.0, storage=f"{tmp}/s.db",
+                          study_name="parallel", seed=seed)
+    report = {"wall_s": {"sequential": [], "two_workers": []},
+              "launches": dict.fromkeys(_launch_counts(), 0)}
+    studies, released = [], []
+    for turn, name in enumerate(("sequential", "two_workers", "two_workers",
+                                 "sequential")):
+        workers = 2 if name == "two_workers" else None
+        ctx = HyperoptContext(
+            cached=cached, info=info,
+            hcfg=dataclasses.replace(hcfg, study_name=f"{name}{turn}"),
+            model_base=ModelConfig(num_classes=info.num_classes),
+            device="cuda", space_fn=quick_space)
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            studies.append(run_kfold_optimization(
+                ctx, n_trials=PAR_SWEEP_TRIALS, verbose=True,
+                parallel_workers=workers,
+                devices=["cuda:0", "cuda:0"] if workers else None))
+        torch.cuda.synchronize()
+        report["wall_s"][name].append(time.perf_counter() - t0)
+        if workers:  # the parallel path's launches
+            after = _launch_counts()
+            _add_launches(report["launches"],
+                          {k: after[k] - before[k] for k in after})
+        released.append(ctx._hbm_pool is None)
+    trials = [t for s in studies for t in s.get_trials()]
+    report["states"] = [t.state for t in trials]
+    report["values"] = [t.value for t in trials]
+    report["checks"] = {
+        "trials_complete_or_pruned": all(
+            len(s.get_trials()) == PAR_SWEEP_TRIALS for s in studies)
+        and set(report["states"]) <= {"COMPLETE", "PRUNED"},
+        "complete_values_finite": all(
+            np.isfinite(t.value) for t in trials if t.state == "COMPLETE"),
+        "pools_released": all(released)}
+    return report
+
+
+def phase_parallel(out: dict, seed: int) -> None:
+    """Data parallelism (A14a) on the card at ResNet50/224 bf16 'auto':
+    (1) fit at B=32 over an NCCL group of one rank against the same fit
+    without a group; (2) two processes of this script over gloo sharing
+    cuda:0 at global B=64 against one process at B=64; (3) two replicas on
+    cuda:0 behind make_server; (4) a local mesh of [cuda:0, cuda:0] under
+    Predictor and extract_features, and predict_cli --data-parallel; (5)
+    two sweep workers sharing cuda:0 beside a sequential sweep."""
+    from irp_tpu_torch.train.checkpoint import save_weights_npz
+
+    report, checks = {}, {}
+    train, val, info = _train_sets(seed, PAR_TRAIN, PAR_VAL)
+    t0 = time.perf_counter()
+    w1 = _par_world1(seed, train, val, info)
+    report["world1_s"] = time.perf_counter() - t0
+    report["world1"] = w1
+    checks["world1_backend_nccl"] = w1["backend"] == "nccl"
+    checks["world1_launches_equal_no_group"] = (
+        w1["launches"]["nccl_world1"] == w1["launches"]["no_group"])
+    for key, bar in PAR_TOL["world1"].items():
+        checks[f"world1_{key}"] = w1["gaps"][key] <= max(
+            PAR_FLOOR_X * w1["floor"][key], bar)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        two = _par_two_ranks(seed, tmp)
+        report["two_ranks_s"] = time.perf_counter() - t0
+    report["two_ranks"] = two
+    checks["two_ranks_backend_gloo"] = two["backend"] == "gloo"
+    for key, ok in two["ranks_bit_equal"].items():
+        checks[f"two_ranks_{key}_ranks_bit_equal"] = ok
+    for key in two["gaps"]:
+        if key.startswith("fit"):  # Adam's: printed, not gated
+            checks[f"two_ranks_{key}_finite"] = all(
+                math.isfinite(v) for v in two["gaps"][key].values())
+    ratios = {}
+    for dtype in PAR_DTYPES:
+        key = f"step_{dtype}"
+        limit = {name: max(PAR_FLOOR_X * two["floor"][key][name], bar)
+                 for name, bar in PAR_TOL[key].items()}
+        for name in limit:
+            checks[f"two_ranks_{key}_{name}"] = \
+                two["gaps"][key][name] <= limit[name]
+        for fault in PAR_FAULTS[dtype]:
+            planted = two["planted"][f"{key}_{fault}"]
+            ratios[f"{key}_{fault}"] = max(
+                planted[name] / limit[name] for name in limit)
+            checks[f"two_ranks_{key}_planted_{fault}_caught"] = \
+                ratios[f"{key}_{fault}"] > 1.0
+    two["planted_gap_over_limit"] = ratios
+    variables = _random_variables(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/resnet50_224.npz"
+        save_weights_npz(path, variables["params"], variables["batch_stats"],
+                         meta={"image_size": 224})
+        t0 = time.perf_counter()
+        report["replicas"] = _par_replicas(path, seed)
+        report["replicas_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["local_mesh"] = _par_local_mesh(
+            path, _random_state_dict(seed), seed, tmp)
+        report["local_mesh_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        report["sweep"] = _par_sweep(seed, tmp)
+        report["sweep_s"] = time.perf_counter() - t0
+    for part in ("replicas", "local_mesh", "sweep"):
+        for k, v in report[part]["checks"].items():
+            checks[f"{part}_{k}"] = bool(v)
+    # the data-parallel runs alone: not their references without a group
+    # or mesh, nor the sequential sweep, nor the planted faults' runs
+    launches = dict.fromkeys(_launch_counts(), 0)
+    for counts in (w1["launches"]["nccl_world1"], two["launches"]["rank0"],
+                   two["launches"]["rank1"], report["replicas"]["launches"],
+                   report["local_mesh"]["launches"]["predictor"],
+                   report["local_mesh"]["launches"]["extract_features"],
+                   report["sweep"]["launches"]):
+        _add_launches(launches, counts)
+    out["launches"]["parallel"] = launches
+    checks["k1_and_k2_launched"] = all(v > 0 for v in launches.values())
+    emit({"phase": "parallel",
+          "model": "ResNet50/224 bf16, K1 'auto', 10 classes, hidden 512",
+          "launches": launches, **report, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"parallel checks failed: {failed}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3976,10 +4704,20 @@ def main(argv=None) -> int:
                     "phase then times its K2 and its K3 path (distance "
                     "tile, self mask, torch.topk) in turns with this "
                     "tree's")
+    # the parallel phase starts this script as each rank of its two-rank
+    # runs with these
+    ap.add_argument("--two-rank-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.two_rank_worker is not None:
+        _two_rank_worker(args.two_rank_worker, args.port, args.work,
+                         args.seed)
+        return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
@@ -4017,6 +4755,8 @@ def main(argv=None) -> int:
         phase_fidelity(out, args.seed)
     if "monitor" in phases:
         phase_monitor(out, args.seed)
+    if "parallel" in phases:
+        phase_parallel(out, args.seed)
     if "profile" in phases:
         phase_profile(out, args.seed)
     # the bench phase's B=256 times, beside each kernel's yardstick call

@@ -128,6 +128,7 @@ def main(argv=None):
         from irp_tpu_torch.models.classifier import init_classifier
         from irp_tpu_torch.models.convert import (load_torch_checkpoint,
                                                   merge_pretrained)
+        from irp_tpu_torch.parallel.mesh import make_mesh
 
         info = get_dataset_info(final_src)
         cached = load_image_dir_cache(info)
@@ -138,10 +139,11 @@ def main(argv=None):
         if args.pretrained:
             merge_pretrained(model, load_torch_checkpoint(args.pretrained))
         # uploads the dataset once when it fits in free device memory
-        # (Animals-10 at 256^2 is 5.1 GB), else streams it batch by batch
+        # (Animals-10 at 256^2 is 5.1 GB), else streams it batch by batch;
+        # every batch split over the mesh's devices (every local card)
         feats, labels_arr, keys = extract_features(
             cached, mcfg, state_dict=model.state_dict(), verbose=True,
-            device=device)
+            mesh=make_mesh(devices=[device] if args.cpu else None))
         emb, _ = create_embeddings(feats, labels_arr, verbose=True,
                                    device=device)
         cmask, gmask, _ = detect_outliers(emb, labels_arr, device=device)

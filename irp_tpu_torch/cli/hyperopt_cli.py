@@ -7,7 +7,10 @@ shards into the dataset info, decode the cache once, and run the study
 Usage:
   python -m irp_tpu_torch.cli.hyperopt_cli --data-dir ./data/webdataset
       [--n-trials 200] [--k-folds 3] [--storage optuna_animals10_kfold.db]
-      [--quick] [--cpu]
+      [--quick] [--cpu] [--parallel-workers N]
+
+--parallel-workers N runs up to N trials at once, one per local CUDA
+device (with --cpu, N workers on the CPU).
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ def main(argv=None):
     p.add_argument("--asha-reduction-factor", type=int, default=3,
                    help="ASHA keep-top-1/N factor per rung")
     p.add_argument("--parallel-workers", type=int, default=None,
-                   help="concurrent trial workers (not ported: one device "
-                        "runs the trials in sequence)")
+                   help="run up to this many trials concurrently, one "
+                        "worker per local CUDA device (--cpu: the CPU for "
+                        "each; default: sequential)")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--search-optimizer", action="store_true",
                    help="add the optimizer family (adam/adamw/sgd) as an "
@@ -64,11 +68,6 @@ def main(argv=None):
                    help="upload each fold per fit instead of keeping one "
                         "device-resident pool of the train cache")
     args = p.parse_args(argv)
-
-    if args.parallel_workers and args.parallel_workers > 1:
-        raise NotImplementedError(
-            "--parallel-workers is not ported to irp_tpu_torch: one device "
-            "runs the trials in sequence (ROADMAP A14)")
 
     from irp_tpu_torch import tracking
     from irp_tpu_torch._kernels import resolve_device
@@ -121,7 +120,12 @@ def main(argv=None):
                           train_base=build_train_base(args), device=device,
                           space_fn=space_fn,
                           reuse_hbm_pool=not args.no_hbm_pool)
-    run_kfold_optimization(ctx, n_trials=args.n_trials, verbose=True)
+    workers = args.parallel_workers
+    run_kfold_optimization(
+        ctx, n_trials=args.n_trials, verbose=True, parallel_workers=workers,
+        # torch has one CPU device: each CPU worker takes it
+        devices=([device] * workers if workers and device.type == "cpu"
+                 else None))
     return 0
 
 

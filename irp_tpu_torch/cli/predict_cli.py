@@ -28,8 +28,9 @@ auto`` routes ResNet50's frozen identity bottlenecks through the fused
 CUDA kernel on the card.  ``--decoder auto`` (the default) decodes JPEGs
 with the native batch decoder where it builds (``data/jpeg.py``).
 
-``--data-parallel`` (ROADMAP A14) is not ported yet: it exits 2 before
-any weights are loaded.
+``--data-parallel`` splits each batch over every local card (a local
+mesh, ``parallel/mesh.py``); on one card it scores as without it.  It
+cannot go with ``--export``, which bakes a one-device program.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ import json
 import os
 import sys
 import time
-
-# flags of the JAX CLI that wait for a later item of the port
-_WAITING = (("data_parallel", "--data-parallel", "A14: parallelism"),)
 
 
 def _collect_image_paths(pattern: str):
@@ -139,7 +137,8 @@ def main(argv=None):
                         "(irp_tpu_torch/data/jpeg.py) with PIL for "
                         "non-JPEGs and its misses, pil = PIL only")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP A14)")
+                   help="split each batch over every local card (on one "
+                        "card the same as without it)")
     p.add_argument("--tta", action="store_true",
                    help="test-time augmentation: average the softmax over "
                         "the identity and the horizontal flip")
@@ -154,11 +153,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     # argument checks, before the weights are loaded
-    for attr, flag, item in _WAITING:
-        if getattr(args, attr):
-            print(f"error: {flag} is not ported to irp_tpu_torch yet "
-                  f"(ROADMAP.md, Queue 1, {item})", file=sys.stderr)
-            return 2
     is_irpx = args.weights.lower().endswith(".irpx")
     if not args.export and not (args.images or args.shards):
         print("error: one of --images / --shards is required "
@@ -166,6 +160,10 @@ def main(argv=None):
         return 2
     if args.export and (args.images or args.shards or args.gradcam):
         print("error: --export is a standalone mode", file=sys.stderr)
+        return 2
+    if args.export and args.data_parallel:
+        print("error: --export bakes a single-device program; "
+              "drop --data-parallel", file=sys.stderr)
         return 2
     if args.gradcam and not args.images:
         print("error: --gradcam requires --images mode", file=sys.stderr)
@@ -205,11 +203,16 @@ def main(argv=None):
             return 2
     class_names = load_class_names(args.classes) if args.classes else None
     try:
+        mesh = None
+        if args.data_parallel:
+            from irp_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(devices=["cpu"] if args.cpu else None)
         predictor = load_predictor(
             args.weights, class_names=class_names,
             batch_size=args.batch_size, image_size=args.image_size,
             pad_buckets=export_buckets, tta=args.tta,
-            device="cpu" if args.cpu else None,
+            device="cpu" if args.cpu else None, mesh=mesh,
             fused_frozen_blocks=args.fused_frozen_blocks)
     except (ValueError, OSError) as e:  # wrong-length --classes, bad
         # format, a missing file, ...

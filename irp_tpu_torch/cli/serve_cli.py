@@ -15,8 +15,16 @@ over HTTP on the card (irp_tpu_torch/serve.py).
   curl -s -X POST -H 'Content-Type: application/json' \\
       -d '{"weights": "new_model.npz"}' http://127.0.0.1:8000/reload
 
+  # one replica per local card (one dispatch thread each), or each
+  # batch split over the cards
+  python -m irp_tpu_torch.cli.serve_cli --weights final_model.npz \\
+      --replicas auto
+  python -m irp_tpu_torch.cli.serve_cli --weights final_model.npz \\
+      --data-parallel
+
 --weights also takes an .irpx exported by predict_cli --export: its
-programs fix the batch, the bucket ladder, TTA and the fused mode.  The
+programs fix the batch, the bucket ladder, TTA and the fused mode, and
+it can be neither replicated nor split.  The
 live weights serve the JAX package's unfused forward unless
 --fused-frozen-blocks auto (or on) asks for the fused CUDA kernel.
 """
@@ -27,13 +35,6 @@ import argparse
 import signal
 import sys
 import threading
-
-# flags of the JAX package's serve CLI that this port does not run yet
-_NOT_PORTED = {
-    "data_parallel": "--data-parallel (ROADMAP.md, Queue 1, A14: "
-                     "parallelism)",
-    "replicas": "--replicas (ROADMAP.md, Queue 1, A14: parallelism)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,9 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", action="store_true",
                    help="log each HTTP request")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not in this port yet (an error)")
+                   help="split each batch over every local card (a local "
+                        "mesh); on one card the same as without it")
     p.add_argument("--replicas", default=None,
-                   help="not in this port yet (an error)")
+                   help="'auto' (every local card) or N: a full model copy "
+                        "per card, one dispatch thread each; the "
+                        "alternative to --data-parallel")
     p.add_argument("--allow-reload", action="store_true",
                    help="enable POST /reload {\"weights\": path}: swap the "
                         "served model with no downtime (loaded and warmed "
@@ -87,21 +91,50 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _local_device_count(cpu: bool) -> int:
+    """Local devices a replica can take: the CUDA cards, or the one CPU
+    device torch has."""
+    import torch
+
+    return 1 if cpu else torch.cuda.device_count()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for dest, what in _NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            print(f"error: {what} is not ported yet", file=sys.stderr)
+    is_irpx = args.weights.lower().endswith(".irpx")
+    n_replicas = None
+    if args.replicas is not None:
+        if args.data_parallel:
+            print("error: --replicas (a full model copy per device) and "
+                  "--data-parallel (one batch split over devices) are "
+                  "alternative strategies; pick one", file=sys.stderr)
             return 2
+        if is_irpx:
+            print("error: --replicas needs the live weights; an .irpx "
+                  "program's device is baked", file=sys.stderr)
+            return 2
+        n_devices = _local_device_count(args.cpu)
+        if args.replicas == "auto":
+            n_replicas = n_devices
+        else:
+            try:
+                n_replicas = int(args.replicas)
+            except ValueError:
+                print(f"error: --replicas must be 'auto' or an integer, "
+                      f"got {args.replicas!r}", file=sys.stderr)
+                return 2
+            if not 1 <= n_replicas <= n_devices:
+                print(f"error: --replicas {n_replicas} needs that many "
+                      f"local devices, have {n_devices}", file=sys.stderr)
+                return 2
 
     import numpy as np
 
     from irp_tpu_torch.infer import (load_class_names, load_predictor,
-                                     serving_buckets)
+                                     replicate_predictor, serving_buckets)
     from irp_tpu_torch.serve import make_server
 
     class_names = load_class_names(args.classes) if args.classes else None
-    is_irpx = args.weights.lower().endswith(".irpx")
     if is_irpx and args.batch_buckets:
         print("error: an .irpx serves only the bucket ladder baked at "
               "export (predict_cli --export --export-batch-buckets ...); a "
@@ -110,21 +143,28 @@ def main(argv=None) -> int:
         return 2
     device = "cpu" if args.cpu else "cuda"
     pad_buckets = None
+    mesh = None
 
     def load(path, names=None):
-        # the launch's flags; an .irpx fixes its own ladder
+        # the launch's flags; an .irpx fixes its own ladder (and refuses
+        # a mesh: its device is fixed)
         return load_predictor(
             path, class_names=names, batch_size=args.batch_size,
             image_size=args.image_size,
             pad_buckets=(None if path.lower().endswith(".irpx")
                          else pad_buckets),
-            tta=args.tta, device=device,
+            tta=args.tta, device=device, mesh=mesh,
             fused_frozen_blocks=args.fused_frozen_blocks)
 
     try:
+        if args.data_parallel:
+            from irp_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(devices=["cpu"] if args.cpu else None)
         if args.batch_buckets:
-            pad_buckets = serving_buckets(args.batch_buckets,
-                                          args.batch_size)
+            pad_buckets = serving_buckets(
+                args.batch_buckets, args.batch_size,
+                n_data=mesh.size if mesh is not None else 1)
         predictor = load(args.weights, class_names)
     except (ValueError, NotImplementedError, RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -144,22 +184,28 @@ def main(argv=None) -> int:
     # a reloaded artifact gets no launch-time --classes: the daemon keeps
     # the served names only where they fit, or takes the artifact's own
     loader = load if args.allow_reload else None
+    served = (predictor if n_replicas is None
+              else replicate_predictor(predictor, n=n_replicas))
     # bind first (fails fast on a busy port), then warm every served
     # batch size (cuDNN algorithm choice, kernel build) before traffic
-    server = make_server(predictor, host=args.host, port=args.port,
+    server = make_server(served, host=args.host, port=args.port,
                          window_ms=args.window_ms, decoder=args.decoder,
                          verbose=args.verbose, loader=loader,
                          weights_path=args.weights)
     cfg = predictor.model.config
     shapes = predictor.pad_buckets or (predictor.batch_size,)
     name = f"ResNet{cfg.depth}" if cfg.family == "resnet" else cfg.family
-    print(f"warming {name} forward on {predictor.device} "
+    where = (f"{n_replicas} replicas" if n_replicas
+             else f"a {mesh.size}-device mesh" if mesh is not None
+             else str(predictor.device))
+    print(f"warming {name} forward on {where} "
           f"(crop {cfg.image_size}, batch sizes {list(shapes)}, "
           f"fused_frozen_blocks {cfg.fused_frozen_blocks}"
           f"{', exported program' if predictor.exported else ''}) ...",
           flush=True)
-    for n in shapes:
-        predictor.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+    for pred in server.batcher.predictors:
+        for n in shapes:
+            pred.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
     from irp_tpu_torch.data.jpeg import prepare
 
     why = prepare(args.decoder)  # build the decoder before the first request

@@ -5,7 +5,8 @@ The port's own copy of the constants and of ``DataConfig``,
 package's ``config.py``: the same fields with the same defaults, so that
 a configuration means the same model and the same training run in both
 packages.  All four families (ResNet, ViT, EfficientNet, ConvNeXt)
-serve and train.
+serve and train.  ``MeshConfig`` sizes the device mesh
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -156,6 +157,22 @@ class TrainConfig:
     ema_decay: float = 0.0
     grad_accum_steps: int = 1
     hbm_reshuffle: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: ``data`` devices (or processes) that split each
+    batch, ``model`` devices that would split the head and the ViT and
+    ConvNeXt blocks (tensor parallelism; only 1 is ported,
+    ``parallel/mesh.py``)."""
+
+    data: int = -1  # -1: every device on the data axis
+    model: int = 1
+
+    def axis_sizes(self, n_devices: int) -> tuple:
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else n_devices // model
+        return (data, model)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,15 +78,23 @@ def extract_features(cached: CachedDataset, model_cfg: ModelConfig = None,
     CPU, where it is a view).  Every batch has ``batch_size`` rows: the
     tail batch is padded by repeating its own rows, as the JAX package
     pads it, and the pad rows are dropped.
+
+    ``mesh`` (``parallel/mesh.py``; ``batch_size`` must split over its
+    data axis): a local mesh splits every batch over its devices, one
+    forward per part; over a process mesh each rank computes its rows of
+    the JAX package's ``HBMEvalSet`` layout and the ranks' features are
+    summed into one zero-filled (N, F) buffer (``all_reduce``), so every
+    rank returns all of them in the original order.
     """
     from irp_tpu_torch.models.classifier import Classifier, init_classifier
     from irp_tpu_torch.ops.preprocess import eval_preprocess_batch
+    from irp_tpu_torch.parallel.mesh import (Mesh, batch_sharding,
+                                             replicated, shard_variables)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded extraction) is not ported yet (ROADMAP.md, "
-            "Queue 1, A14)")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} not divisible by data "
+                         f"axis size {mesh.size}")
     model_cfg = model_cfg or ModelConfig()
     if state_dict is None:
         model = init_classifier(model_cfg, torch.Generator().manual_seed(0),
@@ -94,8 +102,13 @@ def extract_features(cached: CachedDataset, model_cfg: ModelConfig = None,
     else:
         model = Classifier(model_cfg)
         model.load_state_dict(state_dict)
-    model = model.to(device=dev, memory_format=torch.channels_last).eval()
-    model.backbone.cache_folded_weights()
+    local = mesh if mesh is not None and not mesh.is_process \
+        else Mesh([dev])
+    models = dict(zip(replicated(local), shard_variables(local, model)))
+    for m in models.values():
+        m.eval()
+        m.backbone.cache_folded_weights()
+    model = models[dev]
     dtype = getattr(torch, model_cfg.compute_dtype)
     size = model_cfg.image_size
     n = len(cached)
@@ -103,6 +116,17 @@ def extract_features(cached: CachedDataset, model_cfg: ModelConfig = None,
     if n == 0:
         return np.zeros((0, model.backbone.num_features), np.float32), \
             labels, keys
+
+    def features(batch):
+        """One padded batch's features, split over the local mesh."""
+        parts = [models[d].features(eval_preprocess_batch(
+            batch[rows].to(d), size, dtype).permute(0, 3, 1, 2))
+            for d, rows in batch_sharding(local)(batch.shape[0])]
+        return torch.cat([p.to(dev) for p in parts])
+
+    if mesh is not None and mesh.is_process:
+        return _extract_sharded(cached, mesh, batch_size, features, dev,
+                                timings), labels, keys
     if resident is None:
         resident = (dev.type == "cpu" or cached.images.nbytes
                     <= RESIDENT_SHARE * torch.cuda.mem_get_info(dev)[0])
@@ -123,13 +147,37 @@ def extract_features(cached: CachedDataset, model_cfg: ModelConfig = None,
             else:
                 batch = torch.from_numpy(
                     np.ascontiguousarray(cached.images[idx])).to(dev)
-            x = eval_preprocess_batch(batch, size, dtype)
-            f = model.features(x.permute(0, 3, 1, 2))
-            feats[start:stop] = f[:stop - start]
+            feats[start:stop] = features(batch)[:stop - start]
             if verbose and (start // batch_size) % 20 == 0:
                 print(f"features: {stop}/{n}")
         out = feats.cpu().numpy()
     return out, labels, keys
+
+
+def _extract_sharded(cached, mesh, batch_size: int, features, dev,
+                     timings) -> np.ndarray:
+    """extract_features over a process mesh: this rank's windows of the
+    (D, steps x B/D) layout, gathered in (steps, D, B/D) order on every
+    rank, then put back in the set's order."""
+    from irp_tpu_torch.parallel.mesh import gather_rows
+
+    n, d, r = len(cached), mesh.size, mesh.index
+    bl = batch_size // d
+    steps = -(-n // batch_size)
+    order = np.arange(steps * batch_size) % n
+    mine = order[r * steps * bl:(r + 1) * steps * bl]
+    with _stage(timings, "features"), torch.inference_mode():
+        local = torch.cat([features(torch.from_numpy(np.ascontiguousarray(
+            cached.images[mine[s * bl:(s + 1) * bl]])).to(dev))
+            for s in range(steps)])
+        pos = (np.arange(steps)[:, None] * batch_size + r * bl
+               + np.arange(bl)[None, :]).reshape(-1)
+        full = gather_rows(mesh, local, steps * batch_size, pos)
+        flat = full.reshape(steps, d, bl, -1).transpose(0, 1).reshape(
+            steps * batch_size, -1).cpu().numpy()
+    out = np.empty((n, flat.shape[1]), np.float32)
+    out[order] = flat
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@
   reads a contiguous window (:class:`EpochSampler`), and the set is
   re-permuted on the device each epoch (``local_reshuffle``).  All
   permutations are numpy draws from the seed, as in the JAX package, so
-  both packages see the same order.
+  both packages see the same order.  Over a process mesh
+  (``parallel/mesh.py``) each resident set holds this rank's row of the
+  JAX package's (D, N/D) layout, and the stream path copies this rank's
+  rows of each host batch.
 - :class:`HBMFoldPool` keeps the whole train cache of a sweep on the
   device once; ``select_fold`` regroups a fold's samples into a prefix
   (:class:`HBMFoldView`) with one on-device gather.
@@ -294,45 +297,71 @@ def build_cache(shard_paths: Sequence[str], class_names: Sequence[str],
                          shard_paths=tuple(shard_list))
 
 
-class HBMDataset:
-    """The cached train set resident on ``device`` as (N, H, W, 3) uint8,
-    labels int64, globally permuted at build (``reshuffle``).
+def data_shard(mesh) -> Tuple[int, int]:
+    """(D, r): the data axis's size and this process's place on it, for
+    the resident sets; (1, 0) without a mesh.  A local mesh of several
+    devices holds no resident train or eval set: training runs one
+    process per device."""
+    if mesh is None:
+        return 1, 0
+    if not mesh.is_process and mesh.size > 1:
+        raise ValueError(
+            f"the resident sets split over a process mesh (one process "
+            f"per device: parallel.distributed.initialize or torchrun); "
+            f"{mesh} is a local mesh of {mesh.size} devices")
+    return mesh.size, mesh.index
 
-    The JAX package shards it over a mesh's data axis; the port runs on one
-    device, so its one local shard (``local_count`` samples) is the set,
-    and it draws the permutations the JAX package draws for one device.
+
+class HBMDataset:
+    """The cached train set resident on ``device`` as (N/D, H, W, 3)
+    uint8, labels int64: this process's row of the JAX package's (D, N/D)
+    layout over ``mesh``'s data axis (D = 1 without a mesh).
+
+    The set is wrap-padded to a multiple of D and permuted on the host
+    by one ``default_rng(seed)`` (``reshuffle``), then split into D
+    contiguous local shards; rank r uploads shard r only.  All
+    permutations are numpy draws from the seed, as in the JAX package, so
+    both packages see the same order.
     """
 
     def __init__(self, cached: CachedDataset, device,
-                 shuffle_seed: int = 0):
+                 shuffle_seed: int = 0, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
+        d, self._rank = data_shard(mesh)
+        self.data_axis_size = d
         self._cached = cached
         n = len(cached)
         self.n_total = n
-        self.n_padded = n if n else 1
-        self.local_count = self.n_padded
+        self.n_padded = -(-n // d) * d if n else d
+        self.local_count = self.n_padded // d
         self.px = cached.images.shape[1] if n else 0
         self.images = None
         self.labels = None
         self.reshuffle(shuffle_seed)
 
     def reshuffle(self, seed: int) -> None:
-        """A host-side permutation from ``seed``, uploaded anew."""
+        """A host-side permutation from ``seed``; this process's shard
+        uploaded anew."""
         cached, n = self._cached, self.n_total
         rng = np.random.default_rng(seed)
         idx = (rng.permutation(self.n_padded) % max(n, 1) if n
                else np.zeros(self.n_padded, int))
+        local = self.local_count
+        idx = idx[self._rank * local:(self._rank + 1) * local]
         self.images = torch.from_numpy(
             np.ascontiguousarray(cached.images[idx])).to(self.device)
         self.labels = torch.from_numpy(
             cached.labels[idx].astype(np.int64)).to(self.device)
 
     def local_reshuffle(self, seed: int) -> None:
-        """Re-permute the resident set on the device by a permutation drawn
-        from ``seed`` (a gather: a second set-sized buffer lives while it
-        runs)."""
-        perm = np.random.default_rng(seed).permutation(self.local_count)
-        perm = torch.from_numpy(perm).to(self.device)
+        """Re-permute the resident shard on the device: D permutations
+        drawn from ``seed`` in device order, this rank's applied (a
+        gather: a second shard-sized buffer lives while it runs)."""
+        rng = np.random.default_rng(seed)
+        perms = [rng.permutation(self.local_count)
+                 for _ in range(self.data_axis_size)]
+        perm = torch.from_numpy(perms[self._rank]).to(self.device)
         self.images = self.images[perm]
         self.labels = self.labels[perm]
 
@@ -343,16 +372,18 @@ class HBMDataset:
 
 
 class HBMFoldView:
-    """A fold's train set as the prefix ``[0, local_count)`` of an
-    :class:`HBMFoldPool`: what ``fit(hbm_train=...)`` reads in place of an
-    :class:`HBMDataset`.  It raises once the pool has been regrouped for
-    another fold."""
+    """A fold's train set as the prefix ``[0, local_count)`` of each
+    shard of an :class:`HBMFoldPool`: what ``fit(hbm_train=...)`` reads
+    in place of an :class:`HBMDataset`.  It raises once the pool has
+    been regrouped for another fold."""
 
     def __init__(self, pool: "HBMFoldPool", local_count: int):
         self._pool = pool
         self._token = pool._fold_token
         self.local_count = local_count
         self.device = pool.device
+        self.mesh = pool.mesh
+        self.data_axis_size = pool.data_axis_size
         self.px = pool.px
 
     def _check_live(self):
@@ -372,12 +403,14 @@ class HBMFoldView:
         return self._pool.labels
 
     def local_reshuffle(self, seed: int) -> None:
-        """Re-permute the fold's prefix only, by a permutation drawn from
-        ``seed``; the other slots keep their places, so the fold's
-        grouping holds."""
+        """Re-permute the fold's prefix only: D permutations drawn from
+        ``seed`` in device order, this rank's applied; the other slots
+        keep their places, so the fold's grouping holds."""
         self._check_live()
-        self._pool._permute_prefix(
-            np.random.default_rng(seed).permutation(self.local_count))
+        rng = np.random.default_rng(seed)
+        self._pool._permute_prefix(np.stack(
+            [rng.permutation(self.local_count)
+             for _ in range(self.data_axis_size)]))
 
     def window(self, offset: int, size: int):
         """The contiguous batch [offset, offset + size) of the prefix."""
@@ -393,85 +426,125 @@ class HBMFoldPool:
     fold is a regrouping on the device instead of a new upload per
     fold-fit (k x trials uploads of (k - 1) / k of the set otherwise).
 
-    The slot table ``_slot_sample`` (slot -> cache index) starts with the
-    samples shard by shard, as the JAX package's pool lays them out on
-    one device; ``select_fold`` moves the fold's samples into a prefix
-    in an order drawn from ``np.random.default_rng(seed)``, the JAX
-    pool's draws, so both packages hold the same prefix index for index.
+    The JAX package's layout over ``mesh``'s data axis (D = 1 without a
+    mesh): each shard's samples are dealt round-robin over the D devices,
+    rotated by the shard's index, and each device's list wrap-padded to a
+    common length; the slot table ``_slot_table`` (D, local) maps slots
+    to cache indices (``_slot_sample``: this rank's row) and rank r
+    uploads row r.  ``select_fold`` moves
+    each device's fold samples into a prefix of common length (the
+    shortest device's; ``last_dropped`` counts the rest) in an order
+    drawn from ``np.random.default_rng(seed)``, the JAX pool's draws, so
+    both packages hold the same prefix index for index.
     """
 
     # host rows copied per chunk of the upload (a memmap cache is never
     # read into host memory whole)
     UPLOAD_CHUNK = 1024
 
-    def __init__(self, cached: CachedDataset, device, seed: int = 0):
+    def __init__(self, cached: CachedDataset, device, seed: int = 0,
+                 mesh=None):
         if cached.shard_ids is None or cached.shard_paths is None:
             raise ValueError("HBMFoldPool needs a cache built with shard "
                              "tracking (build_cache does this)")
         if cached.images is None:
             raise ValueError("HBMFoldPool needs a cache with images")
         self.device = torch.device(device)
+        self.mesh = mesh
+        d, self._rank = data_shard(mesh)
+        self.data_axis_size = d
         self._cached = cached
         self.px = int(cached.images.shape[1])
+        per_dev: list = [[] for _ in range(d)]
         sids = np.asarray(cached.shard_ids)
-        order = [int(g) for s in np.unique(sids)
-                 for g in np.nonzero(sids == s)[0]]
-        if not order:
+        for s in np.unique(sids):
+            for t, g in enumerate(np.nonzero(sids == s)[0]):
+                per_dev[(t + int(s)) % d].append(int(g))
+        if not per_dev[0]:
             raise ValueError("HBMFoldPool needs a non-empty cache")
-        self.local_count = len(order)
-        self._slot_sample = np.asarray(order, np.int64)
+        local = max(len(lst) for lst in per_dev)
+        slot_sample = np.zeros((d, local), np.int64)
+        slot_pad = np.zeros((d, local), bool)
+        for i, lst in enumerate(per_dev):
+            if not lst:
+                raise ValueError(f"device {i} received no samples (dataset "
+                                 f"smaller than the data axis?)")
+            slot_sample[i] = (lst * -(-local // len(lst)))[:local]
+            slot_pad[i, len(lst):] = True
+        self.local_count = local
+        self._slot_table = slot_sample
+        self._pad_table = slot_pad
         self._fold_token = 0
+        self.last_dropped = 0
 
-        n = self.local_count
+        mine = self._slot_sample
         h, w, c = cached.images.shape[1:]
-        self.images = torch.empty((n, h, w, c), dtype=torch.uint8,
+        self.images = torch.empty((local, h, w, c), dtype=torch.uint8,
                                   device=self.device)
-        for i0 in range(0, n, self.UPLOAD_CHUNK):
+        for i0 in range(0, local, self.UPLOAD_CHUNK):
             part = np.ascontiguousarray(
-                cached.images[self._slot_sample[i0:i0 + self.UPLOAD_CHUNK]])
+                cached.images[mine[i0:i0 + self.UPLOAD_CHUNK]])
             self.images[i0:i0 + len(part)].copy_(torch.from_numpy(part))
-        labels = np.ascontiguousarray(cached.labels[self._slot_sample],
-                                      np.int32)
+        labels = np.ascontiguousarray(cached.labels[mine], np.int32)
         self.labels = torch.from_numpy(labels).to(self.device).long()
-        self.upload_bytes = n * h * w * c + labels.nbytes
+        self.upload_bytes = local * h * w * c + labels.nbytes
         self._rng = np.random.default_rng(seed)
 
+    @property
+    def _slot_sample(self) -> np.ndarray:
+        """Slot -> cache index of this rank's shard."""
+        return self._slot_table[self._rank]
+
     def _permute_prefix(self, perm: np.ndarray) -> None:
-        """Permute the first ``len(perm)`` slots by ``perm`` with one
-        gather.  The gather's output is a second buffer of the prefix's
-        size while it runs: 2 x 5.15 GB when the prefix is the whole pool
-        (``select_fold``) at N = 26,179 and 256 px, which an 80 GB card
-        holds.  A shorter prefix (a view's reshuffle) is gathered and
-        copied back, so the peak is N + prefix instead of 2N, for two
-        passes over the prefix instead of one over the pool."""
-        lt = len(perm)
-        perm_t = torch.from_numpy(perm).to(self.device)
+        """Permute the first ``perm.shape[1]`` slots of every device's
+        shard by its row of ``perm`` (D, lt), the tensors by this rank's
+        row, with one gather.  The gather's output is a second buffer of
+        the prefix's size while it runs: 2 x 5.15 GB when the prefix is
+        the whole pool (``select_fold``) at N = 26,179 and 256 px, which
+        an 80 GB card holds.  A shorter prefix (a view's reshuffle) is
+        gathered and copied back, so the peak is N + prefix instead of
+        2N, for two passes over the prefix instead of one over the
+        pool."""
+        lt = perm.shape[1]
+        perm_t = torch.from_numpy(perm[self._rank]).to(self.device)
         if lt == self.local_count:
             self.images = self.images[perm_t]
             self.labels = self.labels[perm_t]
         else:
             self.images[:lt] = self.images[:lt][perm_t]
             self.labels[:lt] = self.labels[:lt][perm_t]
-        self._slot_sample[:lt] = self._slot_sample[:lt][perm]
+        rows = np.arange(self.data_axis_size)[:, None]
+        self._slot_table[:, :lt] = self._slot_table[:, :lt][rows, perm]
+        self._pad_table[:, :lt] = self._pad_table[:, :lt][rows, perm]
 
     def select_fold(self, train_shard_paths: Sequence[str]) -> HBMFoldView:
-        """Regroup so that the given shards' samples form the prefix, in
-        a shuffled order; returns the view ``fit(hbm_train=...)`` reads.
-        Raises ValueError when the fold holds no sample."""
+        """Regroup so that the given shards' samples form each device's
+        prefix, in a shuffled order; returns the view
+        ``fit(hbm_train=...)`` reads.  Raises ValueError when a device
+        holds no sample of the fold."""
         cached = self._cached
         wanted = {os.path.abspath(p) for p in train_shard_paths}
         keep = np.asarray([i for i, p in enumerate(cached.shard_paths)
                            if os.path.abspath(p) in wanted])
-        in_fold = np.isin(np.asarray(cached.shard_ids),
-                          keep)[self._slot_sample]
-        train_slots = np.nonzero(in_fold)[0]
-        if len(train_slots) < 1:
-            raise ValueError("the pool holds no samples of this fold")
-        self._rng.shuffle(train_slots)
-        self._permute_prefix(np.concatenate(
-            [train_slots, np.nonzero(~in_fold)[0]]))
+        sample_in = np.isin(np.asarray(cached.shard_ids), keep)
+        in_fold = sample_in[self._slot_table] & ~self._pad_table
+        counts = in_fold.sum(axis=1)
+        lt = int(counts.min())
+        if lt < 1:
+            raise ValueError("a device holds no samples of this fold")
+        perm = np.empty(self._slot_table.shape, np.int64)
+        for i in range(self.data_axis_size):
+            train_slots = np.nonzero(in_fold[i])[0]
+            self._rng.shuffle(train_slots)
+            # slots past the common prefix go to the back: unreachable
+            # this fold, counted in last_dropped
+            perm[i] = np.concatenate([train_slots[:lt],
+                                      np.nonzero(~in_fold[i])[0],
+                                      train_slots[lt:]])
+        self.last_dropped = int(counts.sum() - lt * self.data_axis_size)
+        self._permute_prefix(perm)
         self._fold_token += 1
-        return HBMFoldView(self, len(train_slots))
+        return HBMFoldView(self, lt)
 
     def window(self, offset: int, size: int):
         return (self.images[offset:offset + size],
@@ -487,55 +560,77 @@ class HBMFoldPool:
 
 
 class HBMEvalSet:
-    """The (capped) eval set resident on ``device`` in order, wrap-padded
-    to whole batches; :meth:`scatter_logits` undoes the padding."""
+    """The (capped) eval set resident on ``device`` in the JAX package's
+    (D, steps x B/D) layout over ``mesh``'s data axis, unshuffled and
+    wrap-padded to whole global batches; rank r uploads row r.
+    :meth:`scatter_logits` undoes the layout and the padding."""
 
     def __init__(self, cached: CachedDataset, device, batch_size: int,
-                 max_samples: Optional[int] = None):
+                 max_samples: Optional[int] = None, mesh=None):
+        d, rank = data_shard(mesh)
+        if batch_size % d:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"data axis size {d}")
+        bl = batch_size // d
         n = len(cached)
         n_eff = min(n, max_samples) if max_samples is not None else n
         if n_eff <= 0:
             raise ValueError("empty eval set")
         steps = -(-n_eff // batch_size)
         order = np.arange(steps * batch_size) % n_eff
+        mine = order[rank * steps * bl:(rank + 1) * steps * bl]
         self.images = torch.from_numpy(
-            np.ascontiguousarray(cached.images[order])).to(device)
+            np.ascontiguousarray(cached.images[mine])).to(device)
         self.labels = cached.labels[:n_eff]
         self.order = order
         self.n = n_eff
         self.steps = steps
         self.batch_size = batch_size
+        self.per_device = bl
+        self.data_axis_size = d
+        self.mesh = mesh
 
     @property
     def offsets(self) -> np.ndarray:
-        return (np.arange(self.steps) * self.batch_size).astype(np.int32)
+        return (np.arange(self.steps) * self.per_device).astype(np.int32)
 
     def scatter_logits(self, logits_steps: np.ndarray) -> np.ndarray:
-        """(steps, B, C) logits -> (n, C) in the set's order."""
+        """(steps, B, C) logits, each step's B the D devices' windows in
+        device order -> (n, C) in the set's order."""
+        steps, d, bl = self.steps, self.data_axis_size, self.per_device
         num_classes = logits_steps.shape[-1]
-        flat = logits_steps.reshape(-1, num_classes)
+        flat = logits_steps.reshape(steps, d, bl, num_classes).transpose(
+            1, 0, 2, 3).reshape(-1, num_classes)
         out = np.empty((self.n, num_classes), flat.dtype)
         out[self.order] = flat
         return out
 
 
 class EpochSampler:
-    """Per-epoch window offsets into the resident train set: disjoint
-    windows of one batch in a random order after a random phase roll
-    (the JAX package's sampler, the same numpy draws)."""
+    """Per-epoch window offsets into the resident train set's local
+    shards: disjoint windows of B/D samples in a random order after a
+    random phase roll (the JAX package's sampler, the same numpy draws).
+    Every rank draws the same offsets; the global batch is the ranks'
+    windows in rank order."""
 
     def __init__(self, hbm, batch_size: int, seed: int = 0):
-        if batch_size > hbm.local_count:
-            raise ValueError(f"batch {batch_size} exceeds the resident set "
-                             f"({hbm.local_count} samples)")
+        d = getattr(hbm, "data_axis_size", 1)
+        if batch_size % d:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"data axis size {d}")
+        if batch_size // d > hbm.local_count:
+            raise ValueError(
+                f"per-device batch {batch_size // d} exceeds the resident "
+                f"local shard ({hbm.local_count} samples)")
         self.hbm = hbm
         self.batch_size = batch_size
+        self.per_device = batch_size // d
         self.rng = np.random.default_rng(seed)
 
     def epoch_offsets(self, num_steps: Optional[int] = None) -> np.ndarray:
         """(num_steps,) int32 window offsets."""
         n_local = self.hbm.local_count
-        bl = self.batch_size
+        bl = self.per_device
         steps = (max(n_local // bl, 1) if num_steps is None else num_steps)
         out = []
         while len(out) < steps:
@@ -555,21 +650,26 @@ class EpochSampler:
 
     @property
     def steps_per_epoch(self) -> int:
-        return max(self.hbm.local_count // self.batch_size, 1)
+        return max(self.hbm.local_count // self.per_device, 1)
 
 
-def prefetch_to_device(iterator, device, buffer_size: int = 2):
+def prefetch_to_device(iterator, device, buffer_size: int = 2, mesh=None):
     """Double-buffered host -> device copies for the stream path: each
     batch's arrays go through pinned memory with a non-blocking copy, and
     ``buffer_size`` batches are in flight before the first is yielded.
     Yields the batches with their arrays as device tensors (other items
-    as they are)."""
+    as they are).  Over a process ``mesh`` each array's leading dim is
+    the global batch and this rank copies its rows only."""
     device = torch.device(device)
+    d, _ = data_shard(mesh)
 
     def put(batch):
         out = []
         for item in batch:
             if isinstance(item, np.ndarray):
+                if d > 1:
+                    [rows] = mesh.rows(item.shape[0])
+                    item = item[rows]
                 t = torch.from_numpy(np.ascontiguousarray(item))
                 if device.type == "cuda":
                     t = t.pin_memory().to(device, non_blocking=True)

@@ -55,7 +55,9 @@ class HyperoptContext:
     'cpu'.  ``train_samples_per_epoch`` / ``eval_samples`` cap each
     fold-fit's epochs.  ``space_fn`` replaces the search space.
     ``reuse_hbm_pool``: serve every fold-fit from one resident pool (else
-    one upload per fold-fit).
+    one upload per fold-fit).  ``mesh`` (``parallel/mesh.py``): the mesh
+    every fold-fit runs on, in place of ``device`` (a parallel sweep
+    gives each worker a one-device mesh; ``hyperopt/parallel.py``).
     """
 
     cached: CachedDataset  # the whole train cache, decoded once
@@ -70,6 +72,7 @@ class HyperoptContext:
     verbose: bool = False
     space_fn: object = None
     reuse_hbm_pool: bool = True
+    mesh: object = None
 
     def __post_init__(self):
         shards = list(self.cached.shard_paths or ())
@@ -88,10 +91,13 @@ class HyperoptContext:
         self.hbm_pool_stats: Optional[Dict] = None  # set on release
 
     def hbm_pool(self, device) -> HBMFoldPool:
-        """The sweep's fold pool on ``device``, built at first use."""
+        """The sweep's fold pool on ``device`` (over ``mesh``'s data axis
+        when it is a process mesh), built at first use."""
         if self._hbm_pool is None:
+            pmesh = (self.mesh if self.mesh is not None
+                     and self.mesh.is_process else None)
             self._hbm_pool = HBMFoldPool(self.cached, device,
-                                         seed=self.hcfg.seed)
+                                         seed=self.hcfg.seed, mesh=pmesh)
         return self._hbm_pool
 
     def release_hbm_pool(self) -> None:
@@ -100,9 +106,8 @@ class HyperoptContext:
         ``hbm_pool_stats`` keeps its upload size."""
         pool, self._hbm_pool = self._hbm_pool, None
         if pool is not None:
-            # one device: no slot is padded or dropped
             self.hbm_pool_stats = {"upload_bytes": pool.upload_bytes,
-                                   "last_dropped": 0}
+                                   "last_dropped": pool.last_dropped}
             pool.release()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
@@ -169,7 +174,8 @@ def objective_kfold(trial: Trial, ctx: HyperoptContext) -> float:
                          "HyperoptContext pins; set them there")
     k = ctx.hcfg.k_folds
     folds = ctx.folds(k, ctx.hcfg.seed)
-    device = resolve_device(ctx.device)
+    device = (ctx.mesh.device if ctx.mesh is not None
+              else resolve_device(ctx.device))
 
     with tracking.start_run(
             run_name=f"optuna_trial_{trial.number}_kfold") as run:
@@ -273,7 +279,7 @@ def objective_kfold(trial: Trial, ctx: HyperoptContext) -> float:
                              train_cfg, logger=run,
                              on_epoch_end=on_epoch_end, mode=ctx.mode,
                              verbose=ctx.verbose, device=device,
-                             hbm_train=hbm_view)
+                             hbm_train=hbm_view, mesh=ctx.mesh)
             except RuntimeError as e:
                 if not is_oom_error(e):
                     raise
@@ -302,7 +308,7 @@ def objective_kfold(trial: Trial, ctx: HyperoptContext) -> float:
                                  model_cfg, train_cfg, logger=run,
                                  on_epoch_end=on_epoch_end, mode=ctx.mode,
                                  verbose=ctx.verbose, device=device,
-                                 hbm_train=None)
+                                 hbm_train=None, mesh=ctx.mesh)
                 except RuntimeError as e2:
                     if is_oom_error(e2):
                         return float("-inf")

@@ -1,16 +1,17 @@
 """Study runner: create or resume the study and drive the sweep (the JAX
-package's ``hyperopt/runner.py``, sequential).
+package's ``hyperopt/runner.py``).
 
 ``TPESampler(seed)`` with the configured tier-1 pruner, SQLite storage
 with ``load_if_exists`` resume and a progress printout, a completion
-callback and the end-of-sweep summary.  Trials run one after another on
-one device; the JAX package's parallel trial workers on sub-meshes are
-not ported (ROADMAP A14).
+callback and the end-of-sweep summary.  Trials run one after another, or
+with ``parallel_workers`` > 1 concurrently on per-worker meshes
+(``hyperopt/parallel.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 from irp_tpu_torch.hyperopt.objective import HyperoptContext, objective_kfold
 from irp_tpu_torch.hyperopt.pruners import (MedianPruner, NopPruner,
@@ -39,14 +40,16 @@ def make_pruner(hcfg):
 def run_kfold_optimization(ctx: HyperoptContext,
                            n_trials: Optional[int] = None,
                            verbose: bool = True,
-                           parallel_workers: Optional[int] = None) -> Study:
+                           parallel_workers: Optional[int] = None,
+                           devices: Optional[Sequence] = None) -> Study:
     """Run ``n_trials`` more trials (default ``hcfg.n_trials``) of the
-    study ``ctx.hcfg`` names, one after another; the fold pool is released
-    at the end.  ``parallel_workers`` > 1 raises NotImplementedError."""
-    if parallel_workers and parallel_workers > 1:
-        raise NotImplementedError(
-            "parallel trial workers are not ported to irp_tpu_torch: one "
-            "device runs the trials in sequence (ROADMAP A14)")
+    study ``ctx.hcfg`` names; the fold pools are released at the end.
+
+    ``parallel_workers`` > 1 runs up to that many trials at once, one
+    worker per device of ``devices`` (every local CUDA device by
+    default; a device may repeat), each worker with its own
+    context on its own mesh sharing the fold memo; the workers' pool
+    sizes are summed onto ``ctx.hbm_pool_stats``."""
     hcfg = ctx.hcfg
     n_trials = n_trials if n_trials is not None else hcfg.n_trials
     study = create_study(study_name=hcfg.study_name,
@@ -74,12 +77,44 @@ def run_kfold_optimization(ctx: HyperoptContext,
         elif frozen.state == TrialState.PRUNED:
             print(f"Trial {frozen.number} pruned at step {frozen.last_step}")
 
-    try:
-        study.optimize(lambda t: objective_kfold(t, ctx), n_trials,
-                       callbacks=([progress_callback] if verbose else None),
-                       verbose=verbose)
-    finally:
-        ctx.release_hbm_pool()
+    if parallel_workers and parallel_workers > 1:
+        from irp_tpu_torch.hyperopt.parallel import run_parallel_trials
+
+        # one context per worker mesh, made once (replace re-runs the
+        # per-shard histogram scan), sharing the fold memo
+        mesh_ctxs = {}
+
+        def objective_for_mesh(trial, mesh):
+            mesh_ctx = mesh_ctxs.get(id(mesh))
+            if mesh_ctx is None:
+                mesh_ctx = dataclasses.replace(ctx, mesh=mesh)
+                mesh_ctx._fold_cache = ctx._fold_cache
+                mesh_ctxs[id(mesh)] = mesh_ctx
+            return objective_kfold(trial, mesh_ctx)
+
+        try:
+            run_parallel_trials(study, objective_for_mesh, n_trials,
+                                max_workers=parallel_workers,
+                                verbose=verbose, devices=devices)
+        finally:
+            # free every worker's pool: the next stage uploads its own
+            for mctx in mesh_ctxs.values():
+                mctx.release_hbm_pool()
+            stats = [m.hbm_pool_stats for m in mesh_ctxs.values()
+                     if m.hbm_pool_stats is not None]
+            if stats and ctx.hbm_pool_stats is None:
+                ctx.hbm_pool_stats = {
+                    "upload_bytes": sum(s["upload_bytes"] for s in stats),
+                    "last_dropped": max(s["last_dropped"] for s in stats),
+                    "n_worker_pools": len(stats)}
+    else:
+        try:
+            study.optimize(lambda t: objective_kfold(t, ctx), n_trials,
+                           callbacks=([progress_callback] if verbose
+                                      else None),
+                           verbose=verbose)
+        finally:
+            ctx.release_hbm_pool()
 
     if verbose:
         trials = study.get_trials()

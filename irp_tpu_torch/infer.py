@@ -18,10 +18,16 @@
   is the exported program, at the batch and source size it was exported
   with (``source_size``); its Grad-CAM program, when it has one, serves
   ``explain.GradCAM``.
+- Two ways to use several devices (``parallel/mesh.py``): ``mesh=`` a
+  local mesh splits each padded batch evenly over its devices, one
+  forward per part, the parts concatenated in order (bulk scoring);
+  :func:`replicate_predictor` gives one whole predictor per device for
+  ``serve.MicroBatcher``'s dispatch threads (online serving).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -36,8 +42,6 @@ from irp_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 
 _BASIC_DEPTHS = {(2, 2, 2, 2): 18, (3, 4, 6, 3): 34}
 _BOTTLENECK_DEPTHS = {(3, 4, 6, 3): 50, (3, 4, 23, 3): 101, (3, 8, 36, 3): 152}
-_LATER = ("is not ported yet (ROADMAP.md, Queue 1, A14: replicas and "
-          "data-parallel serving are parallelism)")
 
 
 def softmax_np(logits: np.ndarray) -> np.ndarray:
@@ -235,6 +239,12 @@ class Predictor:
     device -> probabilities), and ``source_size`` S: its shapes are fixed
     and its ``model`` carries only the ``config``; ``_cam_call`` is its
     baked Grad-CAM program, if any, at ``_cam_batch_size``.
+
+    ``mesh`` (a local mesh, ``parallel/mesh.py``): the model is copied to
+    each of its devices and every padded batch split evenly over them;
+    ``batch_size`` is rounded down to a multiple of the mesh's size, and
+    every pad bucket must split evenly.  ``device`` is then the mesh's
+    first.
     """
 
     model: torch.nn.Module
@@ -244,6 +254,7 @@ class Predictor:
     tta: bool = False
     device: Optional[object] = None
     source_size: Optional[int] = None
+    mesh: Optional[object] = None
     _program: object = field(default=None, repr=False)
     _cam_call: object = field(default=None, repr=False)
     _cam_batch_size: Optional[int] = field(default=None, repr=False)
@@ -267,15 +278,40 @@ class Predictor:
                     f"batch_size] ending at batch_size={self.batch_size}, "
                     f"got {self.pad_buckets}")
             self.pad_buckets = buckets
+        if self.mesh is not None:
+            if self.exported:
+                raise ValueError(
+                    "a prebuilt-forward predictor cannot take a mesh: the "
+                    "exported program's device is fixed; load the "
+                    ".npz/.pth weights with mesh= instead")
+            if self.mesh.is_process:
+                raise ValueError("a Predictor splits batches over a local "
+                                 "mesh (make_mesh(devices=...)), not over "
+                                 "a process group")
+            n_data = self.mesh.size
+            self.batch_size = max(self.batch_size // n_data, 1) * n_data
+            if self.pad_buckets is not None and any(
+                    b % n_data for b in self.pad_buckets):
+                raise ValueError(
+                    f"every pad bucket must split evenly over the "
+                    f"{n_data}-way data axis, got {self.pad_buckets}")
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         if self.exported:
             # the program fixes its shapes and its preprocessing; ``tta``
             # only records whether it flip-averages
             return
-        self.model = self.model.to(device=self.device,
-                                   memory_format=torch.channels_last).eval()
-        if self.model.config.family == "resnet":
-            self.model.backbone.cache_folded_weights()
+        from irp_tpu_torch.parallel.mesh import (Mesh, replicated,
+                                                 shard_variables)
+
+        mesh = self.mesh or Mesh([self.device])
+        copies = shard_variables(mesh, self.model)
+        for m in copies:
+            m.eval()
+            if m.config.family == "resnet":
+                m.backbone.cache_folded_weights()
+        self.model = copies[0]
+        self._models = dict(zip(replicated(mesh), copies))
 
     @property
     def num_classes(self) -> int:
@@ -288,12 +324,22 @@ class Predictor:
 
     def _forward(self, chunk: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            images = torch.from_numpy(chunk).to(self.device)
             if self.exported:
-                p = self._program(images)
-            else:
-                p = probs_forward(self.model, images, self.tta)
-            return p.cpu().numpy()
+                images = torch.from_numpy(chunk).to(self.device)
+                return self._program(images).cpu().numpy()
+            if self.mesh is None:
+                images = torch.from_numpy(chunk).to(self.device)
+                return probs_forward(self.model, images,
+                                     self.tta).cpu().numpy()
+            from irp_tpu_torch.parallel.mesh import batch_sharding
+
+            # every part launched before any is read back
+            parts = [probs_forward(
+                self._models[dev],
+                torch.from_numpy(np.ascontiguousarray(chunk[rows])).to(dev),
+                self.tta) for dev, rows in
+                batch_sharding(self.mesh)(chunk.shape[0])]
+            return np.concatenate([p.cpu().numpy() for p in parts], axis=0)
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (N, num_classes) float32 softmax.
@@ -491,8 +537,64 @@ def serving_buckets(spec: str, batch_size: int,
 
 def replicate_predictor(pred: Predictor, devices=None,
                         n: Optional[int] = None) -> List[Predictor]:
-    """One predictor per device: not in this slice."""
-    raise NotImplementedError(f"replicate_predictor {_LATER}")
+    """One independent :class:`Predictor` per device, the weights copied
+    (replicas on one device share one model).
+
+    The other way to use several devices for online serving (beside
+    ``mesh=``, which splits each batch and suits bulk scoring): each
+    device holds a whole model and runs its own forward, so concurrent
+    micro-batches dispatch in parallel with no collective and one
+    device's latency.  Give the list to :class:`irp_tpu_torch.serve.
+    MicroBatcher` (one dispatch thread per replica).
+
+    ``devices`` names the devices (one may repeat); ``n`` takes the first
+    n local devices; the default is every local CUDA device (the
+    predictor's own device when it lies on the CPU).  Raises
+    ``ValueError`` for a mesh-sharded predictor (one strategy at a time),
+    an exported program (its device is baked: replicate from the
+    .npz/.pth) and a bad ``devices``/``n``.
+    """
+    if pred.mesh is not None:
+        raise ValueError(
+            "predictor is already mesh-sharded; replicas and batch "
+            "sharding are alternative strategies: build the base "
+            "predictor without mesh=")
+    if pred.exported:
+        raise ValueError(
+            "an exported (.irpx) program has a fixed device; replicate "
+            "from the .npz/.pth weights instead")
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if pred.device.type == "cuda" else [pred.device])
+        if n is not None:
+            if not 1 <= n <= len(devices):
+                raise ValueError(
+                    f"asked for {n} replicas but {len(devices)} local "
+                    "devices are attached (need 1 <= n <= that)")
+            devices = devices[:n]
+    elif n is not None:
+        raise ValueError("pass devices= or n=, not both")
+    elif not devices:
+        raise ValueError("devices is empty")
+    models = {}
+    replicas = []
+    for d in devices:
+        d = resolve_device(d)
+        if d not in models:
+            models[d] = (pred.model if d == pred.device
+                         else copy.deepcopy(pred.model))
+        replicas.append(Predictor(
+            model=models[d], class_names=pred.class_names,
+            batch_size=pred.batch_size, pad_buckets=pred.pad_buckets,
+            tta=pred.tta, device=d))
+    return replicas
+
+
+def predictor_device(pred: Predictor):
+    """The device a (non-sharded) predictor's weights live on; None for a
+    mesh-sharded one."""
+    return None if pred.mesh is not None else pred.device
 
 
 def make_predictor(variables: dict,
@@ -513,9 +615,7 @@ def make_predictor(variables: dict,
     from irp_tpu_torch.models.classifier import Classifier
     from irp_tpu_torch.models.convert import jax_variables_to_state_dict
 
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= (data-parallel serving) {_LATER}")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     params = variables["params"]
     if cfg is None:
         cfg = infer_model_config(params, image_size=image_size or 224,
@@ -526,7 +626,7 @@ def make_predictor(variables: dict,
                      batch_size=batch_size,
                      pad_buckets=(tuple(pad_buckets) if pad_buckets
                                   is not None else None),
-                     tta=tta, device=dev)
+                     tta=tta, device=dev, mesh=mesh)
 
 
 def load_predictor(weights_path: str,
@@ -552,12 +652,16 @@ def load_predictor(weights_path: str,
     ``fused_frozen_blocks``, so ``cfg``, ``image_size``, ``batch_size``
     and ``fused_frozen_blocks`` are not read; ``pad_buckets`` is refused
     (the artifact serves its own ladder) and ``tta`` is refused unless
-    the artifact bakes it.
+    the artifact bakes it; ``mesh`` is refused too (its device is fixed).
+    ``mesh``: a local mesh the predictor splits its batches over.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= (data-parallel serving) {_LATER}")
-    dev = resolve_device(device)
     ext = os.path.splitext(weights_path)[1].lower()
+    if ext == ".irpx" and mesh is not None:
+        raise ValueError(
+            "a prebuilt-forward predictor cannot take a mesh: the exported "
+            "program's device is fixed; load the .npz/.pth weights with "
+            "mesh= instead")
+    dev = resolve_device(device if mesh is None else mesh.device)
     if ext == ".irpx":
         from irp_tpu_torch.export import (load_exported_predictor,
                                           tta_preflight_error)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from irp_tpu_torch.models.layers import Conv2d, at_least_f32, flax_init_
+from irp_tpu_torch.parallel.distributed import all_reduce_sum_autograd
 from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
                                            fused_identity_bottleneck)
 
@@ -60,6 +61,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased variance (n / (n - 1) larger), which the JAX package never
     does.  ``hold_stats`` (set while a checkpointed block recomputes its
     forward) leaves the running buffers where they are.
+
+    ``group`` (a process group, set by :func:`sync_batch_stats`): the
+    moments are the global batch's, as the JAX package's forward on the
+    sharded global array takes them.  Every path splits its batches
+    evenly over the ranks, so the global mean and mean square are the
+    ranks' own averaged: summed over the ranks in f32 (one
+    differentiable all-reduce, whose backward sums the gradients) and
+    divided by the rank count, before the biased variance is formed.
     """
 
     def __init__(self, features, compute_dtype=torch.bfloat16,
@@ -68,6 +77,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.compute_dtype = compute_dtype
         self.frozen = frozen
         self.hold_stats = False
+        self.group = None
 
     def forward(self, x):
         if not self.training or self.frozen:
@@ -78,8 +88,20 @@ class BatchNorm2d(nn.BatchNorm2d):
                              self.bias.to(dt), False, 0.0, self.eps)
             return y.to(self.compute_dtype)
         xf = at_least_f32(x)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            ex2 = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            # every rank holds an equal share of the global batch: the
+            # global moments are the mean of the ranks' moments (over one
+            # rank, this rank's, bit for bit)
+            c = xf.shape[1]
+            sums = all_reduce_sum_autograd(torch.cat(
+                [xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))]),
+                self.group)
+            ranks = torch.distributed.get_world_size(self.group)
+            mean, ex2 = sums[:c] / ranks, sums[c:] / ranks
+        var = (ex2 - mean * mean).clamp_min(0.0)
         if not self.hold_stats:
             with torch.no_grad():
                 keep = 1.0 - self.momentum
@@ -91,6 +113,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(self.compute_dtype)
+
+
+def sync_batch_stats(model: nn.Module, group=None) -> None:
+    """Take every BatchNorm2d's train-mode moments over ``group``'s
+    global batch (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 @contextlib.contextmanager

@@ -1,7 +1,9 @@
 """Mixup / CutMix batch mixing (the JAX package's ``ops/mix.py``).
 
 Each sample is mixed with its partner in the reversed batch
-(:func:`_partner`); one coefficient per step.  Both transforms are the one
+(:func:`_partner`); one coefficient per step.  Over a process mesh each
+rank's batch is one shard of the data axis, so its local reverse is the
+JAX package's shard-local pairing.  Both transforms are the one
 blend ``x + (x2 - x) * w``, with w the scalar ``1 - lam`` (mixup) or an
 (H, W) patch mask (CutMix, lam re-derived from the patch area the border
 leaves).  Labels stay hard: the loss is ``lam * CE(y_a) + (1 - lam) *
@@ -52,7 +54,7 @@ def sample_mix_draws(rng: np.random.Generator, mixup_alpha: float,
 
 
 def _partner(arr: torch.Tensor) -> torch.Tensor:
-    """Reversed-batch pairing (one data shard: the whole batch)."""
+    """Reversed-batch pairing (one data shard: this rank's batch)."""
     return arr.flip(0)
 
 

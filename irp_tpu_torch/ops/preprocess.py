@@ -101,6 +101,14 @@ class AugmentDraws:
             else getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)})
 
+    def rows(self, sl: slice) -> "AugmentDraws":
+        """The draws of the batch rows ``sl`` (a rank's rows of a global
+        batch's draws)."""
+        return AugmentDraws(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name)[sl]
+            for f in dataclasses.fields(self)})
+
 
 def _uniform(generator, shape, lo: float, hi: float) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=generator.device)

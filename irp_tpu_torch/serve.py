@@ -4,7 +4,10 @@ package's ``serve.py``).
 Requests enqueue; one dispatch thread drains the queue up to ``max_batch``
 images or ``window_ms``, whichever comes first, and runs ONE
 ``Predictor.predict_probs`` for the group, so the card sees full batches
-while clients send one image at a time.  Decoding (image -> 256x256 uint8,
+while clients send one image at a time.  Given a list of replicas
+(``infer.replicate_predictor``), one dispatch thread per replica drains
+the one shared queue, so concurrent micro-batches run on their replicas'
+devices at once.  Decoding (image -> 256x256 uint8,
 the cache contract) happens in the HTTP handler threads.  Everything is
 stdlib: ``http.server.ThreadingHTTPServer`` + ``queue`` + ``threading``.
 
@@ -13,7 +16,8 @@ Endpoints
 - ``GET /healthz``  — liveness + model card (family, ResNet depth,
   classes, crop size).
 - ``GET /stats``    — request/batch counters, mean batch fill, latency
-  percentiles (p50/p90/p99 over the last 1024 requests).
+  percentiles (p50/p90/p99 over the last 1024 requests), and each
+  replica's dispatches and images (``per_replica``).
 - ``GET /metrics``  — the same counters in Prometheus text format.
 - ``POST /predict`` — a raw image body, or JSON ``{"instances":
   ["<base64 image>", ...]}``; ``?topk=k`` sets how many (name, prob)
@@ -24,8 +28,9 @@ Endpoints
   predicted one.  It runs in the handler thread, outside the batcher, at
   most ``max_concurrent_explains`` at a time (503 beyond).
 - ``POST /reload`` — ``{"weights": "<path>"}``: swap the served model with
-  no downtime (the new one is loaded and every served batch size warmed
-  before one atomic swap; on failure 400 and the old model serves on).
+  no downtime (the new one is loaded, copied to every replica's device
+  and every served batch size warmed before one atomic swap; on failure
+  400 and the old model serves on).
   Only with a loader (``serve_cli --allow-reload``); 403 otherwise.
 """
 
@@ -98,66 +103,93 @@ class _Pending:
 class MicroBatcher:
     """Groups concurrent requests into single padded-batch dispatches.
 
-    One dispatch thread owns the device.  Each thread is started with its
-    own stop token, so a thread that outlives a timed-out ``stop()`` (a
-    dispatch stuck on the device) exits when it wakes, and a later
-    ``start()`` never leaves two dispatchers serving one predictor.
+    ``predictor`` is one Predictor or a list of replicas (one dispatch
+    thread each, slot i always serving ``predictors[i]``).  Each thread is
+    started with its own stop token, so a thread that outlives a timed-out
+    ``stop()`` (a dispatch stuck on the device) exits when it wakes, and a
+    later ``start()`` never leaves two dispatchers serving one replica.
     """
 
-    def __init__(self, predictor: Predictor, max_batch: Optional[int] = None,
+    def __init__(self, predictor, max_batch: Optional[int] = None,
                  window_ms: float = 5.0, autostart: bool = True,
                  max_pending: Optional[int] = None):
-        if isinstance(predictor, (list, tuple)):
-            raise NotImplementedError(
-                "serving replicas is not ported yet (ROADMAP.md, Queue 1, "
-                "A14: replicas are parallelism)")
-        self.predictor = predictor
-        self.max_batch = (predictor.batch_size if max_batch is None
+        preds = (list(predictor) if isinstance(predictor, (list, tuple))
+                 else [predictor])
+        if not preds:
+            raise ValueError("need at least one predictor")
+        if len(preds) > 1 and len({
+                (p.batch_size, p.pad_buckets, p.model.config.image_size,
+                 p.num_classes) for p in preds}) != 1:
+            raise ValueError(
+                "replicas must share batch_size/pad_buckets/crop/classes: "
+                "build them with replicate_predictor from one base")
+        self.predictors: List[Predictor] = preds
+        self.max_batch = (preds[0].batch_size if max_batch is None
                           else int(max_batch))
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         self.window_s = max(float(window_ms), 0.0) / 1e3
-        # bounded queue = load shedding (-> HTTP 503)
-        self.max_pending = (max(64, 8 * self.max_batch)
+        # bounded queue = load shedding (-> HTTP 503), ~8 batches of
+        # backlog per dispatch thread
+        self.max_pending = (max(64, 8 * self.max_batch) * len(preds)
                             if max_pending is None else int(max_pending))
         self._queue: queue.Queue = queue.Queue(maxsize=self.max_pending)
-        self._thread: Optional[threading.Thread] = None
-        self._stop_token: Optional[threading.Event] = None
+        # (thread, stop token) per replica slot
+        self._slots: List[Optional[tuple]] = [None] * len(preds)
         self._stopped = False
         self._lock = threading.Lock()
         self._stats = {"requests": 0, "images": 0, "batches": 0,
                        "batch_images_sum": 0, "errors": 0, "rejected": 0,
                        "cancelled": 0}
+        self._replica_stats = [{"batches": 0, "images": 0} for _ in preds]
         self._latencies_ms: deque = deque(maxlen=1024)
         if autostart:
             self.start()
 
+    @property
+    def predictor(self) -> Predictor:
+        """The served model (the first replica when there are several)."""
+        return self.predictors[0]
+
+    @predictor.setter
+    def predictor(self, value: Predictor) -> None:
+        if len(self.predictors) > 1:
+            # one assignment would collapse the replica set to one device
+            raise ValueError("this batcher serves replicas; assign a full "
+                             "list to .predictors instead")
+        self.predictors = [value]
+
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
         with self._lock:
-            if (self._thread is not None and self._thread.is_alive()
-                    and not self._stop_token.is_set()):
-                return  # already serving
             self._stopped = False
-            self._stop_token = threading.Event()
-            self._thread = threading.Thread(
-                target=self._run, args=(self._stop_token,), daemon=True,
-                name="irp-torch-microbatch")
-            self._thread.start()
+            for idx, slot in enumerate(self._slots):
+                if (slot is not None and slot[0].is_alive()
+                        and not slot[1].is_set()):
+                    continue  # this replica is served
+                token = threading.Event()
+                thread = threading.Thread(
+                    target=self._run, args=(token, idx), daemon=True,
+                    name="irp-torch-microbatch" + (f"-{idx}" if idx
+                                                   else ""))
+                thread.start()
+                self._slots[idx] = (thread, token)
 
     def stop(self, timeout: float = 10.0) -> None:
         with self._lock:
             self._stopped = True
-            token, thread = self._stop_token, self._thread
-            self._thread = None
-        if token is not None:
+            slots = [s for s in self._slots if s is not None]
+            self._slots = [None] * len(self._slots)
+        for _, token in slots:
             token.set()
-        try:
-            self._queue.put_nowait(_STOP)  # fast wake; never block
-        except queue.Full:
-            pass
-        if thread is not None:
-            thread.join(timeout)
+            try:
+                self._queue.put_nowait(_STOP)  # fast wake; never block
+            except queue.Full:
+                pass
+        # one shared deadline: N stuck threads do not stretch stop()
+        deadline = time.monotonic() + timeout
+        for thread, _ in slots:
+            thread.join(max(0.0, deadline - time.monotonic()))
         self._drain_reject(RuntimeError("batcher stopped"))
 
     def _drain_reject(self, exc: BaseException) -> None:
@@ -217,7 +249,7 @@ class MicroBatcher:
         return self.submit_async(images_u8).wait(timeout)
 
     # -- dispatch thread ---------------------------------------------------
-    def _run(self, token: threading.Event) -> None:
+    def _run(self, token: threading.Event, idx: int = 0) -> None:
         while not token.is_set():
             try:
                 item = self._queue.get(timeout=0.25)
@@ -239,9 +271,9 @@ class MicroBatcher:
                     break
                 group.append(nxt)
                 total += int(nxt.images.shape[0])
-            self._dispatch(group)
+            self._dispatch(group, idx)
 
-    def _dispatch(self, group: List[_Pending]) -> None:
+    def _dispatch(self, group: List[_Pending], idx: int = 0) -> None:
         live = [p for p in group if not p.cancelled]
         if len(live) < len(group):
             with self._lock:
@@ -254,11 +286,13 @@ class MicroBatcher:
         for p in live:
             buckets.setdefault(p.images.shape[1:3], []).append(p)
         for bucket in buckets.values():
-            self._dispatch_same_shape(bucket)
+            self._dispatch_same_shape(bucket, idx)
 
-    def _dispatch_same_shape(self, group: List[_Pending]) -> None:
-        # one read: a hot reload swaps .predictor between dispatches
-        predictor = self.predictor
+    def _dispatch_same_shape(self, group: List[_Pending],
+                             idx: int = 0) -> None:
+        # one read: a hot reload swaps .predictors between dispatches
+        preds = self.predictors
+        predictor = preds[idx % len(preds)]
         for p in group:
             p.predictor = predictor
         try:
@@ -282,6 +316,9 @@ class MicroBatcher:
         with self._lock:
             self._stats["batches"] += 1
             self._stats["batch_images_sum"] += off
+            mine = self._replica_stats[idx % len(self._replica_stats)]
+            mine["batches"] += 1
+            mine["images"] += off
             for p in group:
                 self._latencies_ms.append((done - p.t_enqueue) * 1e3)
 
@@ -290,6 +327,9 @@ class MicroBatcher:
         with self._lock:
             s = dict(self._stats)
             lat = list(self._latencies_ms)
+            s["per_replica"] = [
+                {"device": str(p.device), **r}
+                for p, r in zip(self.predictors, self._replica_stats)]
         s["mean_batch_fill"] = (s["batch_images_sum"] / s["batches"]
                                 if s["batches"] else 0.0)
         pcts = latency_percentiles(lat)
@@ -347,6 +387,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "generation": self.server.generation,
                 "weights": self.server.weights_path,
                 "device": str(self.server.batcher.predictor.device),
+                "replicas": len(self.server.batcher.predictors),
                 # depth is a ResNet field: another family's would be the
                 # dataclass default
                 "model": {"family": cfg.family,
@@ -483,6 +524,9 @@ class _Handler(BaseHTTPRequestHandler):
                                            "retry shortly"})
             return
         t0 = time.monotonic()
+        # an error is answered after the slot is released, so that a
+        # client's next /explain never finds this one's slot still held
+        error = None
         try:
             # ONE snapshot: validation, maps and names all come from this
             # GradCAM's predictor, whatever a concurrent reload does
@@ -490,8 +534,8 @@ class _Handler(BaseHTTPRequestHandler):
             predictor = gc.predictor
             num_classes = predictor.num_classes
             if explain_cls is not None and not 0 <= explain_cls < num_classes:
-                self._send_json(400, {"error": f"class must be in "
-                                               f"[0, {num_classes})"})
+                error = (400, {"error": f"class must be in "
+                                        f"[0, {num_classes})"})
                 return
             n = images.shape[0]
             if predictor.tta:
@@ -509,10 +553,12 @@ class _Handler(BaseHTTPRequestHandler):
                                        np.full((n,), explain_cls, np.int32)))
                 probs = softmax_np(logits)
         except Exception as e:  # noqa: BLE001 — surfaced to the client
-            self._send_json(500, {"error": f"explain failed: {e}"})
+            error = (500, {"error": f"explain failed: {e}"})
             return
         finally:
             self.server._explain_slots.release()
+            if error is not None:
+                self._send_json(*error)
         self.server.record_explain(int(images.shape[0]),
                                    (time.monotonic() - t0) * 1e3)
         cropped = center_crop_u8(images, predictor.model.config.image_size)
@@ -551,8 +597,10 @@ class InferenceServer(ThreadingHTTPServer):
             raise ValueError(f"{len(self.class_names)} class names for a "
                              f"{n}-class model")
         if self.class_names is not None:
-            # the predictor names each dispatch's answers (_Pending)
-            batcher.predictor.class_names = self.class_names
+            # the predictor names each dispatch's answers (_Pending): every
+            # replica carries the served names
+            for p in batcher.predictors:
+                p.class_names = self.class_names
         self.decoder = decoder
         self.request_timeout_s = request_timeout_s
         self.max_request_bytes = max_request_bytes
@@ -628,13 +676,27 @@ class InferenceServer(ThreadingHTTPServer):
                     "embeds class names")
             else:
                 names = None
-            # every served shape runs before the swap (the first run of a
-            # shape picks cuDNN's algorithms and builds the kernels)
-            for n in (new.pad_buckets or (1,)):
-                new.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
-            new.class_names = names
-            old = self.batcher.predictor
-            self.batcher.predictor = new  # atomic: dispatches read it once
+            olds = self.batcher.predictors
+            news = [new]
+            if len(olds) > 1:
+                from irp_tpu_torch.infer import (predictor_device,
+                                                 replicate_predictor)
+
+                devices = [predictor_device(p) for p in olds]
+                if any(d is None for d in devices):
+                    raise ValueError("cannot recover the replica devices of "
+                                     "the serving set; restart the daemon "
+                                     "to reload")
+                news = replicate_predictor(new, devices=devices)
+            # every served shape runs on every replica before the swap (the
+            # first run of a shape picks cuDNN's algorithms and builds the
+            # kernels)
+            for pred in news:
+                for n in (pred.pad_buckets or (1,)):
+                    pred.predict_probs(np.zeros((n, 256, 256, 3), np.uint8))
+                pred.class_names = names
+            old = olds[0]
+            self.batcher.predictors = news  # atomic: dispatches read once
             if self.batcher.max_batch == old.batch_size:
                 # the cap came from the old batch; track the new one
                 self.batcher.max_batch = new.batch_size
@@ -646,7 +708,7 @@ class InferenceServer(ThreadingHTTPServer):
             return {"reloaded": weights_path, "generation": self.generation,
                     "num_classes": int(new.num_classes),
                     "previous_num_classes": int(old.num_classes),
-                    "class_names": names}
+                    "replicas": len(news), "class_names": names}
 
     def record_explain(self, n_images: int, latency_ms: float) -> None:
         with self._gradcam_lock:
@@ -732,14 +794,15 @@ class InferenceServer(ThreadingHTTPServer):
         self.batcher.stop()
 
 
-def make_server(predictor: Predictor, host: str = "127.0.0.1",
+def make_server(predictor, host: str = "127.0.0.1",
                 port: int = 0, class_names=None,
                 max_batch: Optional[int] = None, window_ms: float = 5.0,
                 decoder: str = "auto", verbose: bool = False,
                 request_timeout_s: float = 60.0, loader=None,
                 weights_path: Optional[str] = None,
                 max_concurrent_explains: int = 2) -> InferenceServer:
-    """An :class:`InferenceServer` (not yet serving) for ``predictor``.
+    """An :class:`InferenceServer` (not yet serving) for ``predictor``,
+    one Predictor or a list of replicas (``infer.replicate_predictor``).
 
     ``port=0`` binds an ephemeral port (read ``server.port`` after).
     ``class_names`` defaults to the predictor's own.  ``loader`` (a ``path
@@ -750,7 +813,7 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
     batcher = MicroBatcher(predictor, max_batch=max_batch,
                            window_ms=window_ms)
     names = (class_names if class_names is not None
-             else predictor.class_names)
+             else batcher.predictor.class_names)
     try:
         return InferenceServer((host, port), batcher, class_names=names,
                                decoder=decoder, verbose=verbose,

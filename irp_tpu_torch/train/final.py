@@ -15,6 +15,10 @@ package's ``train/final.py``).
   correct/incorrect galleries go to the tracking run with
   ``final_model.npz`` and ``final_model.pth``.
 - :func:`display_model_visualizations` finds those figures back.
+- ``mesh=`` a process mesh trains data-parallel (``train/fit.py``):
+  every rank runs ``train_final_model`` alike; only rank 0 writes the
+  checkpoints, the tracking run, the figures and the artifacts, and
+  every rank reads the same checkpoint on ``resume``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,24 @@ FINAL_PINNED = frozenset({
     "learning_rate", "weight_decay", "batch_size", "max_epochs", "patience",
     "aug_intensity", "train_samples_per_epoch", "eval_samples",
     "scheduler_step", "seed"})
+
+
+class _QuietRun:
+    """The tracking run of a rank other than 0: it records nothing."""
+
+    class info:  # noqa: N801 — Run.info's shape
+        run_id = None
+
+    def log_params(self, *args, **kwargs) -> None:
+        pass
+
+    log_metrics = log_artifact = log_params
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
 @dataclass
@@ -166,7 +188,8 @@ def train_final_model(study, train_cached: CachedDataset,
                       checkpoint_dir: Optional[str] = None,
                       experiment: str = "animals10",
                       verbose: bool = True,
-                      resume: bool = False) -> Optional[FinalResult]:
+                      resume: bool = False,
+                      mesh=None) -> Optional[FinalResult]:
     """Retrain with the best hyperparameters on all the train data, then
     evaluate the whole test set; runs on the CUDA device unless
     ``device='cpu'``.
@@ -176,7 +199,8 @@ def train_final_model(study, train_cached: CachedDataset,
     ``train_base`` seeds every TrainConfig field the study does not
     search.  ``resume=True`` (needs ``checkpoint_dir``) continues from the
     newest full-state checkpoint there: the optimizer's moments and the
-    schedule's position carry over.
+    schedule's position carry over.  ``mesh``: as :func:`fit`'s (the
+    module docstring).
     """
     if study is None or not study.get_trials():
         print("No valid study available. Cannot train final model.")
@@ -193,8 +217,11 @@ def train_final_model(study, train_cached: CachedDataset,
     model_cfg, train_cfg = final_configs(study, info, final_epochs,
                                          model_base, train_base)
 
-    tracking.set_experiment(experiment)
-    with tracking.start_run(run_name="final_model_full_training") as run:
+    leader = mesh is None or mesh.is_leader
+    if leader:
+        tracking.set_experiment(experiment)
+    with (tracking.start_run(run_name="final_model_full_training")
+          if leader else _QuietRun()) as run:
         run.log_params({**bp, **_recipe(train_cfg),
                         "final_epochs": final_epochs, "mode": mode,
                         "bn_stats_mode": model_cfg.bn_stats_mode})
@@ -208,7 +235,8 @@ def train_final_model(study, train_cached: CachedDataset,
             raise ValueError("resume=True requires checkpoint_dir (there "
                              "is nowhere to restore from)")
         if checkpoint_dir:
-            os.makedirs(checkpoint_dir, exist_ok=True)
+            if leader:
+                os.makedirs(checkpoint_dir, exist_ok=True)
             if resume:
                 restore_from, start_epoch = latest_checkpoint(checkpoint_dir)
                 if verbose and restore_from:
@@ -216,7 +244,7 @@ def train_final_model(study, train_cached: CachedDataset,
                           f"(epoch {start_epoch})")
 
             def on_epoch_end(epoch, val_acc, state=None):
-                if state is not None:
+                if state is not None and leader:
                     save_model_npz(
                         os.path.join(checkpoint_dir,
                                      f"checkpoint_epoch_{epoch:03d}.npz"),
@@ -227,8 +255,22 @@ def train_final_model(study, train_cached: CachedDataset,
         result = fit(train_cached, None, info, model_cfg, train_cfg,
                      logger=run, mode=mode, verbose=verbose,
                      on_epoch_end=on_epoch_end, restore_from=restore_from,
-                     start_epoch=start_epoch, device=device)
+                     start_epoch=start_epoch, device=device, mesh=mesh)
         model = result.state.model
+        if verbose:
+            print("\nEvaluating final model on test set...")
+        test = evaluate_full(model, result.eval_step, test_cached,
+                             result.device, batch_size=train_cfg.batch_size,
+                             class_weights=np.asarray(info.class_weights))
+        report = classification_report(test.labels, test.preds,
+                                       info.class_names)
+        if verbose:
+            print(f"\nFinal Test Results:\n  Loss: {test.loss:.4f}\n"
+                  f"  Accuracy: {test.accuracy:.2f}%")
+        if not leader:
+            return FinalResult(state=result.state, test_acc=test.accuracy,
+                               test_loss=test.loss, report=report,
+                               run_id=None, history=result.history)
 
         # the tracking store keeps copies: the local files go with the
         # temporary directory
@@ -242,20 +284,8 @@ def train_final_model(study, train_cached: CachedDataset,
                                             "final_model.npz"),
                                model, meta=npz_meta)
 
-            if verbose:
-                print("\nEvaluating final model on test set...")
-            test = evaluate_full(model, result.eval_step, test_cached,
-                                 result.device,
-                                 batch_size=train_cfg.batch_size,
-                                 class_weights=np.asarray(info.class_weights))
             run.log_metrics({"test_acc": test.accuracy,
                              "test_loss": test.loss})
-            if verbose:
-                print(f"\nFinal Test Results:\n  Loss: {test.loss:.4f}\n"
-                      f"  Accuracy: {test.accuracy:.2f}%")
-
-            report = classification_report(test.labels, test.preds,
-                                           info.class_names)
             for name in info.class_names:
                 run.log_metrics({
                     f"test_f1_{name}": report[name]["f1-score"],

@@ -6,8 +6,16 @@ resident on the device (mode 'hbm') or streamed through pinned memory
 ('stream'), one epoch of sampler windows per epoch, eval on the capped
 validation set each epoch, early stopping with the best weights restored.
 
+Data parallelism: ``mesh=`` a process mesh (``parallel/mesh.py``, one
+process per device after ``parallel.distributed.initialize`` or under
+``torchrun``) splits every global batch over the ranks; every rank runs
+this function with the same arguments, holds its rows of the resident
+sets, and decides early stopping on the validation accuracy of the whole
+set, so every rank stops on the same epoch.  Only rank 0 logs to
+``logger``; the caller writes files on rank 0 only.
+
 Resume: ``restore_from`` / ``start_epoch`` continue a run from a
-``train/checkpoint.py`` file.  Every epoch's random draws come from
+``train/checkpoint.py`` file (every rank reads the same file).  Every epoch's random draws come from
 generators seeded by (seed, epoch), the skipped epochs' reshuffles are
 replayed and the sampler is fast-forwarded, so a resumed run draws what an
 uninterrupted one draws.
@@ -31,9 +39,13 @@ from irp_tpu_torch.data.pipeline import (CachedDataset, EpochSampler,
 from irp_tpu_torch.models.classifier import init_classifier
 from irp_tpu_torch.models.convert import (load_torch_checkpoint,
                                           merge_pretrained)
-from irp_tpu_torch.train.loop import (evaluate, evaluate_hbm, restore_weights,
-                                      set_mode, snapshot_weights,
-                                      train_epoch, train_model)
+from irp_tpu_torch.models.resnet import sync_batch_stats
+from irp_tpu_torch.parallel.distributed import all_reduce_sum, broadcast
+from irp_tpu_torch.parallel.mesh import shard_variables
+from irp_tpu_torch.train.loop import (_result, evaluate, evaluate_hbm,
+                                      restore_weights, set_mode,
+                                      snapshot_weights, train_epoch,
+                                      train_model)
 from irp_tpu_torch.train.state import create_train_state
 from irp_tpu_torch.train.step import (StepConfig, epoch_step, eval_epoch,
                                       eval_step, train_step)
@@ -59,14 +71,16 @@ def resolve_fit_mode(train_cached: CachedDataset,
                      val_cached: Optional[CachedDataset],
                      train_cfg: TrainConfig, device,
                      headroom: float = 0.6,
-                     budget_bytes: Optional[int] = None) -> str:
-    """'hbm' when the uint8 train set (twice, while a per-epoch reshuffle
-    gathers it into a second buffer) and the padded eval set fit in
-    ``headroom`` of the device's free memory
-    (``torch.cuda.mem_get_info``), else 'stream'.  A CPU device, which
-    reports no budget, gets 'hbm'; ``budget_bytes`` overrides the
+                     budget_bytes: Optional[int] = None,
+                     data_shards: int = 1) -> str:
+    """'hbm' when this device's 1/``data_shards`` of the uint8 train set
+    (twice, while a per-epoch reshuffle gathers it into a second buffer)
+    and of the padded eval set fit in ``headroom`` of the device's free
+    memory (``torch.cuda.mem_get_info``), else 'stream'.  A CPU device,
+    which reports no budget, gets 'hbm'; ``budget_bytes`` overrides the
     budget."""
     device = torch.device(device)
+    d = max(int(data_shards), 1)
     budget = budget_bytes
     if budget is None:
         if device.type != "cuda":
@@ -76,7 +90,7 @@ def resolve_fit_mode(train_cached: CachedDataset,
         return "hbm"
     px = train_cached.images.shape[1]
     per_img = px * px * 3
-    need = len(train_cached) * per_img
+    need = -(-len(train_cached) // d) * per_img
     if train_cfg.hbm_reshuffle:
         need *= 2
     if val_cached is not None and len(val_cached) > 0:
@@ -84,7 +98,7 @@ def resolve_fit_mode(train_cached: CachedDataset,
         if train_cfg.eval_samples is not None:
             n_eval = min(n_eval, train_cfg.eval_samples)
         bs = train_cfg.batch_size
-        need += -(-n_eval // bs) * bs * per_img
+        need += -(-n_eval // bs) * bs // d * per_img
     return "hbm" if need <= headroom * budget else "stream"
 
 
@@ -132,6 +146,7 @@ class FitResult:
     steps_per_epoch: int
     eval_step: object
     device: torch.device
+    mesh: object = None
 
 
 def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
@@ -139,7 +154,7 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
         logger=None, on_epoch_end=None, mode: str = "hbm",
         verbose: bool = False, use_class_weights: bool = True,
         restore_from: Optional[str] = None, start_epoch: int = 0,
-        device=None, hbm_train=None) -> FitResult:
+        device=None, hbm_train=None, mesh=None) -> FitResult:
     """Fine-tune a classifier on ``train_cached``; validate on
     ``val_cached`` (None: no validation, no early stopping, the last
     epoch's weights).  Runs on the CUDA device unless ``device='cpu'``.
@@ -158,17 +173,43 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     ``train_cached`` may then be the metadata-only subset
     (``subset_by_shards(with_images=False)``), which still gives the
     steps per epoch.
+
+    ``mesh``: a process mesh for data parallelism (module docstring), or
+    a local mesh of one device (the same as ``device``).  A local mesh of
+    several devices raises: data-parallel training runs one process per
+    device.
     """
     if hbm_train is not None and mode not in ("hbm", "auto"):
         raise ValueError("hbm_train requires mode='hbm'")
-    dev = resolve_device(device)
+    if mesh is not None and not mesh.is_process and mesh.size > 1:
+        raise ValueError(
+            f"data-parallel training runs one process per device: start "
+            f"one process per device (parallel.distributed.initialize, or "
+            f"torchrun with initialize(auto=True)) and pass make_mesh() "
+            f"there; {mesh} is a local mesh of {mesh.size} devices, which "
+            f"serves inference only")
+    pmesh = mesh if mesh is not None and mesh.is_process else None
+    d = 1 if pmesh is None else pmesh.size
+    leader = mesh is None or mesh.is_leader
+    if not leader:
+        logger = None  # rank 0 logs
+    dev = resolve_device(device if mesh is None else mesh.device)
     if hbm_train is not None:
         if torch.device(hbm_train.device).type != dev.type:
             raise ValueError(f"hbm_train lies on {hbm_train.device}, the "
                              f"fit runs on {dev}")
+        if getattr(hbm_train, "mesh", None) is not pmesh:
+            raise ValueError("hbm_train was built on a different mesh")
         mode = "hbm"  # already resident: nothing left to decide
     if mode == "auto":
-        mode = resolve_fit_mode(train_cached, val_cached, train_cfg, dev)
+        mode = resolve_fit_mode(train_cached, val_cached, train_cfg, dev,
+                                data_shards=d)
+        if pmesh is not None:
+            # every rank must take one mode: 'stream' if any rank's
+            # memory asks for it
+            votes = torch.tensor([float(mode == "stream")], device=dev)
+            mode = ("stream" if float(all_reduce_sum(votes, pmesh.group))
+                    else "hbm")
         if verbose:
             print(f"fit: mode=auto resolved to '{mode}'")
     if mode not in ("hbm", "stream"):
@@ -176,15 +217,20 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     accum = int(train_cfg.grad_accum_steps)
     if accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
-    if train_cfg.batch_size % accum:
-        raise ValueError(f"batch_size={train_cfg.batch_size} must be "
-                         f"divisible by grad_accum_steps={accum}")
+    if train_cfg.batch_size % (d * accum):
+        raise ValueError(
+            f"batch_size={train_cfg.batch_size} must be divisible by "
+            f"data_shards*grad_accum_steps ({d}*{accum}): each device "
+            f"needs a whole micro-batch per accumulation step")
     seed = train_cfg.seed
     model = init_classifier(model_cfg,
                             torch.Generator().manual_seed(seed), device=dev)
     if model_cfg.pretrained_path:
         merge_pretrained(model,
                          load_torch_checkpoint(model_cfg.pretrained_path))
+    if pmesh is not None:
+        [model] = shard_variables(pmesh, model)
+        sync_batch_stats(model, pmesh.group)
     if hbm_train is not None:
         cache_px = hbm_train.px
     elif train_cached.images is None:
@@ -221,7 +267,8 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
 
     if mode == "hbm":
         hbm = (hbm_train if hbm_train is not None
-               else HBMDataset(train_cached, dev, shuffle_seed=seed))
+               else HBMDataset(train_cached, dev, shuffle_seed=seed,
+                               mesh=pmesh))
         if start_epoch > 0 and train_cfg.hbm_reshuffle:
             # replay the skipped epochs' reshuffles: they compose
             for past in range(1, start_epoch):
@@ -237,8 +284,8 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
                 if epoch > 0 and train_cfg.hbm_reshuffle:
                     hbm.local_reshuffle(seed + RESHUFFLE_STRIDE * epoch)
                 offsets = sampler.epoch_offsets(steps_per_epoch)
-                metrics = epoch_step(state, hbm, offsets, batch, step_cfg,
-                                     cw, gen, mix_rng)
+                metrics = epoch_step(state, hbm, offsets, sampler.per_device,
+                                     step_cfg, cw, gen, mix_rng, pmesh)
             train_ms.append(timer.ms)
             loss = float(metrics["loss"].mean())
             acc = float(metrics["accuracy"].mean()) * 100.0
@@ -253,12 +300,13 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
             batches = prefetch_to_device(
                 iter_host_batches(train_cached, batch, shuffle=True,
                                   seed=seed + epoch, drop_last=drop_last,
-                                  pad_final=not drop_last), dev)
+                                  pad_final=not drop_last), dev,
+                mesh=pmesh)
 
             def run_step(state, b, i):
                 images, labels, _ = b
                 return train_step(state, images, labels, step_cfg, cw, gen,
-                                  mix_rng)
+                                  mix_rng, mesh=pmesh)
 
             with _EpochTimer(dev) as timer:
                 out = train_epoch(state, run_step, batches,
@@ -272,7 +320,7 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     hbm_eval = None
     if mode == "hbm" and val_cached is not None and len(val_cached) > 0:
         hbm_eval = HBMEvalSet(val_cached, dev, batch,
-                              max_samples=train_cfg.eval_samples)
+                              max_samples=train_cfg.eval_samples, mesh=pmesh)
 
     def eval_fn(state):
         if val_cached is None or len(val_cached) == 0:
@@ -282,11 +330,19 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
             if hbm_eval is not None:
                 return evaluate_hbm(
                     m, lambda mm, he: eval_epoch(mm, he, model_cfg.image_size,
-                                                 dtype), hbm_eval, cw_np)
-            return evaluate(m, run_eval_step, val_cached, dev,
-                            batch_size=batch,
-                            max_samples=train_cfg.eval_samples,
-                            class_weights=cw_np)
+                                                 dtype, pmesh),
+                    hbm_eval, cw_np)
+            res = evaluate(m, run_eval_step, val_cached, dev,
+                           batch_size=batch,
+                           max_samples=train_cfg.eval_samples,
+                           class_weights=cw_np)
+            if pmesh is None:
+                return res
+            # every rank scored the whole set: rank 0's logits decide, so
+            # that every rank stops on the same epoch
+            logits = broadcast(torch.from_numpy(res.logits).to(dev), 0,
+                               pmesh.group)
+            return _result(logits.cpu().numpy(), res.labels, cw_np)
 
     def snapshot(state):
         with state.eval_view() as m:
@@ -303,6 +359,8 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
         # no validation, no best restore: hand back the final EMA weights
         restore_weights(model, snapshot(state))
     set_mode(model, False)
+    if pmesh is not None:
+        sync_batch_stats(model, None)
     return FitResult(state=state, history=history, best_val_acc=best,
                      steps_per_epoch=steps_per_epoch,
-                     eval_step=run_eval_step, device=dev)
+                     eval_step=run_eval_step, device=dev, mesh=mesh)

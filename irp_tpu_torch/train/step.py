@@ -12,6 +12,19 @@ the sampler's window offsets; metrics stay on the device until it ends.
 
 Eval steps crop and normalize through K2 on the card
 (``ops/preprocess.py::eval_preprocess_batch``) and return f32 logits.
+
+Over a process mesh (``parallel/mesh.py``; ``mesh=``) each rank's step
+takes its rows of the global batch B and computes the JAX package's step
+on the sharded global batch: every draw is the global batch's, drawn
+alike on every rank from generators seeded alike, and each rank takes
+its rows, so the sample stream does not depend on D; BatchNorm's moments
+are the global batch's (``models/resnet.py::sync_batch_stats``, which
+the caller sets); the loss is the global weighted mean, its denominator
+summed over the ranks before the backward; the gradients are then
+summed over the ranks with one flat all-reduce (SUM, not the mean
+``DistributedDataParallel`` takes: each rank's loss is already its
+share of the global mean); the loss and the correct count are summed
+over the ranks.
 """
 
 from __future__ import annotations
@@ -24,7 +37,11 @@ import torch
 
 from irp_tpu_torch.models.classifier import (mixed_weighted_cross_entropy,
                                              weighted_cross_entropy)
+from irp_tpu_torch.models.layers import sample_sd_masks
 from irp_tpu_torch.ops.mix import MixDraws, mix_batch, sample_mix_draws
+from irp_tpu_torch.parallel.distributed import (all_reduce_grads,
+                                                all_reduce_sum)
+from irp_tpu_torch.parallel.mesh import gather_rows
 from irp_tpu_torch.ops.preprocess import (AugmentDraws, augment_batch_fused,
                                           eval_preprocess_batch,
                                           sample_augment_draws)
@@ -85,10 +102,47 @@ def _correct(logits, labels_a, labels_b, lam):
     return (logits.argmax(dim=-1) == ref).sum()
 
 
+def _rank_rows(mesh, b: int) -> slice:
+    """This rank's rows of a global batch of ``b`` local rows a rank."""
+    return slice(mesh.index * b, (mesh.index + 1) * b)
+
+
+def _global_masks(model, rate: float, generator, b: int, mesh, device,
+                  drop=None, sd=None):
+    """(dropout masks, stochastic-depth masks): the given ones, and the
+    others drawn for the global batch (D x ``b`` rows) as the model draws
+    them (the blocks' first, then the head's two), this rank's rows of
+    each."""
+    rows = _rank_rows(mesh, b)
+    big = b * mesh.size
+    if sd is None and model.config.family != "resnet":
+        sd = {k: v[rows] for k, v in sample_sd_masks(
+            model.sd_probs(), big, generator, device).items()}
+    keep = 1.0 - float(rate)
+    if drop is None and keep < 1.0:
+        widths = (model.backbone.num_features, model.config.hidden_dim)
+        drop = tuple((torch.rand((big, w), generator=generator,
+                                 device=device) < keep)[rows]
+                     for w in widths)
+    return drop, sd
+
+
+def _denominator(labels, class_weights, mesh):
+    """The loss's denominator over the global batch: its size, or the
+    class-weight sum (summed over the ranks in f32)."""
+    d = 1 if mesh is None else mesh.size
+    if class_weights is None:
+        return float(labels.shape[0] * d)
+    denom = class_weights.float()[labels.long()].sum()
+    if mesh is not None:
+        denom = all_reduce_sum(denom, mesh.group)
+    return denom.clamp_min(1e-8)
+
+
 def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
                    class_weights=None, labels_b=None, lam=None,
                    generator: Optional[torch.Generator] = None,
-                   dropout_masks=None, sd_masks=None):
+                   dropout_masks=None, sd_masks=None, mesh=None):
     """Forward and backward of one batch in train mode: the trainable
     parameters' grads accumulate into ``.grad``.  Returns the loss and the
     count of correct predictions, as device tensors.
@@ -100,16 +154,41 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
     micro-batches, each loss over the full batch's denominator (the batch
     size, or the class-weight sum over the whole batch), so the summed
     grads are the full batch's; BatchNorm layers that collect statistics
-    see the micro-batches' in turn.  The masks are drawn per micro-batch;
-    given ones are then sequences of k, one per micro-batch.
+    see the micro-batches' in turn.  Micro-batch c is the batch's c-th
+    slice of B/k rows; over a process mesh the batch is this rank's
+    shard, so the chunks are shard-local.  The masks are drawn per
+    micro-batch; given ones are then sequences of k, one per micro-batch.
+
+    ``mesh`` (a process mesh): ``x_nhwc`` holds this rank's rows; the
+    loss is this rank's share of the global weighted mean (its
+    denominator summed over the ranks); masks not given are drawn for the
+    global (micro-)batch and this rank's rows taken; given masks are the
+    global (micro-)batch's.  Returns the local loss and count: the caller
+    sums them and the gradients over the ranks.
     """
     k = int(cfg.grad_accum)
     b = x_nhwc.shape[0]
+    if mesh is not None:
+        rows = _rank_rows(mesh, b if k <= 1 else b // k)
+        if dropout_masks is not None:
+            dropout_masks = ([tuple(m[rows] for m in ms)
+                              for ms in dropout_masks] if k > 1
+                             else tuple(m[rows] for m in dropout_masks))
+        if sd_masks is not None:
+            sd_masks = ([{n: m[rows] for n, m in ms.items()}
+                         for ms in sd_masks] if k > 1
+                        else {n: m[rows] for n, m in sd_masks.items()})
     if k <= 1:
+        if mesh is not None:
+            dropout_masks, sd_masks = _global_masks(
+                model, cfg.dropout_rate, generator, b, mesh, x_nhwc.device,
+                dropout_masks, sd_masks)
         logits = model(_nchw(x_nhwc), cfg.dropout_rate, dropout_masks,
                        generator, sd_masks)
+        denom = None if mesh is None else _denominator(labels,
+                                                       class_weights, mesh)
         loss = _loss(logits, labels, labels_b, lam, class_weights,
-                     cfg.label_smoothing)
+                     cfg.label_smoothing, denom)
         with model.precision_scope(x_nhwc):
             loss.backward()
         return loss.detach(), _correct(logits.detach(), labels, labels_b,
@@ -121,19 +200,20 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
         if given is not None and len(given) != k:
             raise ValueError(f"grad_accum_steps={k} takes one set of masks "
                              f"per micro-batch, got {len(given)}")
-    if class_weights is None:
-        denom = float(b)
-    else:
-        denom = class_weights.float()[labels.long()].sum().clamp_min(1e-8)
+    denom = _denominator(labels, class_weights, mesh)
     blk = b // k
     loss_sum = torch.zeros((), dtype=torch.float32, device=x_nhwc.device)
     correct = torch.zeros((), dtype=torch.int64, device=x_nhwc.device)
     for c in range(k):
         sl = slice(c * blk, (c + 1) * blk)
         lb = None if labels_b is None else labels_b[sl]
-        logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate,
-                       None if dropout_masks is None else dropout_masks[c],
-                       generator, None if sd_masks is None else sd_masks[c])
+        drop = None if dropout_masks is None else dropout_masks[c]
+        sd = None if sd_masks is None else sd_masks[c]
+        if mesh is not None:
+            drop, sd = _global_masks(model, cfg.dropout_rate, generator,
+                                     blk, mesh, x_nhwc.device, drop, sd)
+        logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate, drop,
+                       generator, sd)
         loss = _loss(logits, labels[sl], lb, lam, class_weights,
                      cfg.label_smoothing, denom)
         with model.precision_scope(x_nhwc):
@@ -149,16 +229,25 @@ def train_step(state, images_u8, labels, cfg: StepConfig,
                mix_rng: Optional[np.random.Generator] = None,
                aug_draws: Optional[AugmentDraws] = None,
                mix_draws: Optional[MixDraws] = None, dropout_masks=None,
-               sd_masks=None):
+               sd_masks=None, mesh=None):
     """One optimizer step on a uint8 batch (B, H, W, 3) on the device.
 
     Draws (augmentation, mixing, the head's dropout masks and the
     backbone's stochastic-depth masks) come from ``generator`` (a
     generator on the batch's device) and ``mix_rng`` unless given.
-    Returns {'loss', 'accuracy'} as device scalars."""
+    Returns {'loss', 'accuracy'} as device scalars.
+
+    ``mesh`` (a process mesh): the batch is this rank's B/D rows, given
+    draws are the global batch's, and the step is the global batch's (the
+    module docstring); every rank returns the global loss and accuracy.
+    """
     b, h, w = images_u8.shape[:3]
+    d = 1 if mesh is None else mesh.size
     if aug_draws is None:
-        aug_draws = sample_augment_draws(generator, b, h, w, cfg.intensity)
+        aug_draws = sample_augment_draws(generator, b * d, h, w,
+                                         cfg.intensity)
+    if mesh is not None:
+        aug_draws = aug_draws.rows(_rank_rows(mesh, b))
     if cfg.mixing and mix_draws is None:
         mix_draws = sample_mix_draws(mix_rng, cfg.mixup_alpha,
                                      cfg.cutmix_alpha, cfg.out_size,
@@ -168,23 +257,29 @@ def train_step(state, images_u8, labels, cfg: StepConfig,
     state.optimizer.zero_grad()
     loss, correct = loss_and_grads(state.model, x, y_a, cfg, class_weights,
                                    y_b, lam, generator, dropout_masks,
-                                   sd_masks)
+                                   sd_masks, mesh)
+    if mesh is not None:
+        all_reduce_grads(state.optimizer.params.values(), mesh.group)
+        both = all_reduce_sum(torch.stack([loss, correct.to(loss.dtype)]),
+                              mesh.group)
+        loss, correct = both[0], both[1]
     state.apply_gradients()
-    return {"loss": loss, "accuracy": correct.float() / b}
+    return {"loss": loss, "accuracy": correct.float() / (b * d)}
 
 
 def epoch_step(state, hbm, offsets, batch_size: int, cfg: StepConfig,
                class_weights=None,
                generator: Optional[torch.Generator] = None,
-               mix_rng: Optional[np.random.Generator] = None):
-    """A train epoch over the resident set's windows of ``batch_size`` at
-    ``offsets`` (the sampler's): returns {'loss', 'accuracy'} as (steps,)
-    device tensors."""
+               mix_rng: Optional[np.random.Generator] = None, mesh=None):
+    """A train epoch over the resident set's windows of ``batch_size``
+    (this rank's rows of each global batch) at ``offsets`` (the
+    sampler's): returns {'loss', 'accuracy'} as (steps,) device
+    tensors."""
     losses, accs = [], []
     for off in offsets:
         images, labels = hbm.window(int(off), batch_size)
         m = train_step(state, images, labels, cfg, class_weights,
-                       generator, mix_rng)
+                       generator, mix_rng, mesh=mesh)
         losses.append(m["loss"])
         accs.append(m["accuracy"])
     return {"loss": torch.stack(losses), "accuracy": torch.stack(accs)}
@@ -201,10 +296,18 @@ def eval_step(model, images_u8, out_size: int = 224,
 
 @torch.no_grad()
 def eval_epoch(model, hbm_eval, out_size: int = 224,
-               compute_dtype=torch.bfloat16) -> np.ndarray:
+               compute_dtype=torch.bfloat16, mesh=None) -> np.ndarray:
     """Eval over a resident eval set: (steps, B, C) f32 logits on the
-    host, one copy at the end."""
-    bl = hbm_eval.batch_size
-    logits = [eval_step(model, hbm_eval.images[off:off + bl], out_size,
-                        compute_dtype) for off in hbm_eval.offsets]
-    return torch.stack(logits).cpu().numpy()
+    host, one copy at the end; over a process mesh each step's B is the
+    ranks' windows in rank order, gathered on every rank."""
+    bl = hbm_eval.per_device
+    logits = torch.stack([eval_step(model, hbm_eval.images[off:off + bl],
+                                    out_size, compute_dtype)
+                          for off in hbm_eval.offsets])
+    if mesh is not None and mesh.is_process:
+        steps, d = logits.shape[0], mesh.size
+        pos = (np.arange(steps)[:, None] * d * bl + mesh.index * bl
+               + np.arange(bl)[None, :]).reshape(-1)
+        logits = gather_rows(mesh, logits.reshape(steps * bl, -1),
+                             steps * d * bl, pos).reshape(steps, d * bl, -1)
+    return logits.cpu().numpy()

@@ -39,6 +39,7 @@ from irp_tpu_torch.cli import predict_cli
 from irp_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from irp_tpu_torch.explain import GradCAM
 from irp_tpu_torch.models.classifier import init_classifier
+from irp_tpu_torch.parallel.mesh import make_mesh
 from irp_tpu_torch.serve import make_server
 
 torch.set_num_threads(1)
@@ -174,8 +175,9 @@ def test_load_refusals(artifact, tmp_path):
         infer.load_predictor(path, pad_buckets=(1, 4), device="cpu")
     with pytest.raises(ValueError, match="without TTA"):
         infer.load_predictor(path, tta=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        infer.load_predictor(path, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="cannot take a mesh"):
+        infer.load_predictor(path, mesh=make_mesh(devices=["cpu"]),
+                             device="cpu")
     newer = tmp_path / "newer.irpx"
     with zipfile.ZipFile(path) as src, zipfile.ZipFile(newer, "w") as dst:
         for item in src.infolist():

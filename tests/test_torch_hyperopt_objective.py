@@ -253,12 +253,17 @@ def test_the_cli_without_shards_returns_1(tmp_path):
                               "--storage", str(tmp_path / "s.db")]) == 1
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--parallel-workers", "2"], "A14"),
+@pytest.mark.parametrize("argv,rc", [
+    (["--parallel-workers", "2"], 1),
 ])
-def test_the_cli_refuses_what_is_not_ported(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        hyperopt_cli.main(["--data-dir", str(tmp_path), "--cpu", *argv])
+def test_the_cli_refuses_what_is_not_ported(tmp_path, argv, rc):
+    """--parallel-workers is ported (tests/test_torch_parallel_trials.py
+    sweeps with it): the CLI takes it and gets to its data check, here a
+    directory without shards."""
+    tracking.set_tracking_uri(str(tmp_path / "mlruns"))
+    assert hyperopt_cli.main(["--data-dir", str(tmp_path), "--cpu",
+                              "--storage", str(tmp_path / "s.db"),
+                              *argv]) == rc
 
 
 def test_the_cli_sweeps_another_family(data, monkeypatch):
@@ -307,9 +312,33 @@ def test_the_cli_sweeps_another_family(data, monkeypatch):
     assert trial.state == "COMPLETE" and np.isfinite(trial.value)
 
 
-def test_the_runner_refuses_parallel_workers(data):
+def test_the_runner_refuses_parallel_workers(data, tmp_path, monkeypatch):
+    """parallel_workers=2 (ported) runs two trials at once on two CPU
+    workers, each on its own one-device mesh with its own fold pool, with
+    ``fit`` stubbed: both trials COMPLETE, every pool released and their
+    sizes summed onto the caller's context."""
     _, _, info, cached = data
-    ctx = objective.HyperoptContext(cached=cached, info=info,
-                                    hcfg=HyperoptConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        runner.run_kfold_optimization(ctx, parallel_workers=2)
+    tracking.set_tracking_uri(str(tmp_path / "mlruns"))
+    meshes = []
+
+    def fit(train_cached, val_cached, info, model_cfg, train_cfg,
+            logger=None, on_epoch_end=None, mesh=None, **kw):
+        meshes.append(mesh)
+        on_epoch_end(0, 50.0)
+        return _Result(50.0)
+
+    monkeypatch.setattr(objective, "fit", fit)
+    hcfg = HyperoptConfig(n_trials=2, k_folds=2, first_fold_min_acc=0.0,
+                          storage=str(tmp_path / "p.db"), study_name="par",
+                          seed=0)
+    ctx = objective.HyperoptContext(cached=cached, info=info, hcfg=hcfg,
+                                    device="cpu")
+    study = runner.run_kfold_optimization(ctx, n_trials=2, verbose=False,
+                                          parallel_workers=2,
+                                          devices=["cpu", "cpu"])
+    assert [t.state for t in study.get_trials()] == ["COMPLETE"] * 2
+    assert len(meshes) == 4 and all(m.size == 1 and not m.is_process
+                                    for m in meshes)
+    assert ctx._hbm_pool is None
+    assert ctx.hbm_pool_stats["upload_bytes"] > 0
+    assert 1 <= ctx.hbm_pool_stats["n_worker_pools"] <= 2

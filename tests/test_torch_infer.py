@@ -19,6 +19,7 @@ from irp_tpu.models.classifier import init_classifier as jax_init
 from irp_tpu.train import checkpoint as jax_ckpt
 from irp_tpu_torch import infer
 from irp_tpu_torch.config import ModelConfig
+from irp_tpu_torch.parallel.mesh import make_mesh
 from irp_tpu_torch.train import checkpoint
 
 torch.set_num_threads(1)
@@ -132,18 +133,29 @@ def test_no_card_means_no_silent_cpu(artifacts):
 
 
 def test_later_slice_features_raise(artifacts, tmp_path):
-    """Replicas and mesh= wait for the parallelism item (A14); an .irpx
-    loads (tests/test_torch_export.py), and a file that is not one is
-    refused by name."""
+    """A file that is not an .irpx is refused by name; the features of
+    the parallelism slice load: ``mesh=`` a local mesh, and
+    ``replicate_predictor``'s replicas, which score as the predictor
+    does (tests/test_torch_replicas.py holds them further)."""
     _, npz, _ = artifacts
     bad = tmp_path / "m.irpx"
     bad.write_bytes(b"not a zip")
     with pytest.raises(ValueError, match="not a readable irpx"):
         infer.load_predictor(str(bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        infer.load_predictor(npz, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        infer.replicate_predictor(infer.load_predictor(npz, device="cpu"))
+    images = np.random.default_rng(0).integers(0, 256, (3, 64, 64, 3),
+                                               dtype=np.uint8)
+    single = infer.load_predictor(npz, device="cpu", batch_size=4)
+    sharded = infer.load_predictor(
+        npz, mesh=make_mesh(devices=["cpu", "cpu"]), device="cpu",
+        batch_size=4)
+    assert sharded.mesh.size == 2 and sharded.batch_size == 4
+    np.testing.assert_allclose(sharded.predict_probs(images),
+                               single.predict_probs(images), atol=1e-6)
+    replicas = infer.replicate_predictor(single, devices=["cpu", "cpu"])
+    assert len(replicas) == 2
+    for r in replicas:
+        np.testing.assert_array_equal(r.predict_probs(images),
+                                      single.predict_probs(images))
 
 
 def test_npz_round_trips_between_packages(artifacts, tmp_path):

@@ -24,6 +24,7 @@ from irp_tpu_torch.data import outliers
 from irp_tpu_torch.data.pipeline import CachedDataset
 from irp_tpu_torch.models import convert
 from irp_tpu_torch.models.classifier import Classifier
+from irp_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -225,9 +226,13 @@ def test_extract_features_matches_jax(resident):
 
 
 def test_extract_features_guards():
+    """A batch that does not split over the mesh's data axis is refused,
+    as the JAX package's HBMEvalSet refuses it; without a card and
+    without device='cpu' nothing runs."""
     _, cached = _cached(n=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        outliers.extract_features(cached, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        outliers.extract_features(cached, batch_size=3,
+                                  mesh=make_mesh(devices=["cpu", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             outliers.extract_features(cached)

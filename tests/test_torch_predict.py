@@ -7,7 +7,8 @@ The JAX package writes the weights (ResNet18/56, 3 classes); both CLIs
 score the same files with the model at float32 (both packages' inferred
 config patched to float32 compute): equal CSV header and keys, equal
 labels, probabilities within 1e-4, and equal ``--shards`` accuracy.  The
-flags that wait for a later item exit 2 before any weights are loaded.
+flag checks exit 2 before any weights are loaded, and
+``--data-parallel`` on one device scores as the run without it.
 Shards whose ``cls`` is a class name (what the curation writer and
 tests/synth.py write) score with ``--classes`` in the port; the JAX
 package's ``int(cls)`` raises on them (ROADMAP Queue 3).
@@ -179,20 +180,33 @@ def test_name_labelled_shards_score_with_classes(world, tmp_path, capsys):
     (["--export-batch-buckets", "auto", "--images", "x"], "needs --export"),
     (["--export-no-gradcam", "--images", "x"], "needs --export"),
     (["--gradcam", "cams", "--shards", "x"], "requires --images"),
-    (["--data-parallel", "--images", "x"], "not ported"),
+    (["--data-parallel", "--export", "m.irpx"], "single-device program"),
 ])
 def test_waiting_flags_exit_2_before_loading(tmp_path, capsys, argv, item):
     """Each flag's argument check exits 2 before any load, with the JAX
     CLI's message (--export-source-size and --export-no-gradcam without
-    --export are refused too, as --export-batch-buckets is there);
-    --data-parallel still waits for A14."""
+    --export are refused too, as --export-batch-buckets is there;
+    --data-parallel with --export, as in the JAX CLI)."""
     missing = str(tmp_path / "missing.npz")  # a load would raise
     rc, printed = _cli(predict_cli.main, ["--weights", missing, "--cpu",
                                           *argv], capsys)
     assert rc == 2
     assert item in printed.err
-    if "not ported" in item:
-        assert "A14" in printed.err
+
+
+def test_data_parallel_on_one_device_scores_alike(world, tmp_path, capsys):
+    """--data-parallel on the default mesh of one device (the CPU here)
+    writes the CSV the run without it writes."""
+    outs = []
+    for extra in ([], ["--data-parallel"]):
+        out = str(tmp_path / f"dp{len(extra)}.csv")
+        rc, _ = _cli(predict_cli.main, [
+            "--weights", world["npz"], "--images", world["images"],
+            "--batch-size", "4", "--out", out, "--decoder", "pil", "--cpu",
+            *extra], capsys)
+        assert rc == 0
+        outs.append(_csv(out))
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("argv,match", [

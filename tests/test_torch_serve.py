@@ -214,9 +214,10 @@ def test_cli_rejects_unported_flags_and_missing_card(tmp_path):
     from irp_tpu_torch.cli.serve_cli import main
 
     weights = str(tmp_path / "missing.npz")
+    # --replicas 2 needs two local devices (the CPU is one); with
+    # --data-parallel, as with --allow-reload, the missing file refuses it
     for flag in (["--replicas", "2"], ["--data-parallel"]):
         assert main(["--weights", weights, "--cpu", *flag]) == 2
-    # --allow-reload is ported: the missing file is what refuses it
     assert main(["--weights", weights, "--cpu", "--allow-reload"]) == 2
     assert main(["--weights", str(tmp_path / "w.bin"), "--cpu"]) == 2
     if not torch.cuda.is_available():
