@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving (with Grad-CAM, hot reload and the
 exported artifact, for all four model families), curation, benchmark,
 training, sweep, final-training, batch-prediction, native-decode,
-fidelity, monitor and data-parallel paths once on one NVIDIA GPU.
+fidelity, monitor, data-parallel and tensor-parallel paths once on one
+NVIDIA GPU.
 
   python3 chip_smoke.py                       # every phase, one card
   python3 chip_smoke.py --phases device,build,kernels
@@ -275,7 +276,25 @@ Phases, each printing one JSON line:
               quick trials (k = 2, 512 JPEGs) on two sweep workers
               sharing cuda:0 and in sequence: every trial COMPLETE or
               PRUNED, the pools released, wall seconds of each in turns
-              (sequential, two workers, two workers, sequential).
+              (sequential, two workers, two workers, sequential); (6) the
+              model axis (tensor parallelism): the two ranks of (2) again
+              as a data=1 x model=2 mesh, the head and every ViT and
+              ConvNeXt block Megatron-split over them: ViT-B/16 and
+              ConvNeXt-Tiny at 224 (_family_model's weights), the eval
+              forward of 32 images in f32 'highest' and in bf16, and one
+              f32 SGD step of ViT-B/16 with mixup and class weights,
+              against one process on the same inputs (TP_TOL, or
+              TP_FLOOR_X times the one-process rerun), the ranks
+              bit-equal, the step with each of TP_FAULTS planted (g with
+              an all-reduce backward; the gradients summed over the
+              world) past that limit; ResNet50 with its head split: fit
+              (2 x 4 steps at B=64, eval on 128, K1 'auto') then
+              train_final_model (one epoch), the ranks' histories and
+              models bit-equal and whole, world rank 0 alone writing,
+              its final .npz through load_predictor equal to the
+              gathered model bit for bit, K1 and K2 launched on each
+              rank; each rank's forward and step ms printed as host
+              figures.
 17. profile — only when named in --phases: torch.profiler over batches
               of 64 through predict_probs (device time by kernel group,
               the device's idle share), and one train step at B=256 and
@@ -4289,17 +4308,256 @@ def _par_runs(seed: int, mesh) -> dict:
     return out
 
 
+# The model axis (tensor parallelism, ROADMAP A14b) on the same two ranks,
+# as a data=1 x model=2 mesh: ViT-B/16 and ConvNeXt-Tiny at 224 (10
+# classes, hidden 512, _family_model's weights), every block and the head
+# Megatron-split over the two ranks; ResNet50/224 with its head split.
+TP_B = 32  # the ViT and ConvNeXt forwards' and the ViT step's batch
+TP_DTYPES = ("float32", "bfloat16")
+TP_FAULTS = ("g_backward", "world_grads")
+# Gaps of a two-rank run from the one-process run on the same inputs:
+# the forwards' max|got - want| / max|want| over the logits ('logits');
+# the ViT step's loss ('loss', relative) and trainable update ('update':
+# |(got - init) - (want - init)| / |want - init| over the last block, the
+# final LayerNorm and the head).  A gated reading passes within
+# TP_FLOOR_X times its floor (the one-process run again) or its bar,
+# whichever is larger; each planted fault's update gap must exceed it.
+# Readings (NVIDIA H100 80GB HBM3, 700.00 W, seed 0; PERF.md section 6):
+# every floor 0 (one process reruns bit for bit); forwards f32 / bf16
+# ViT-B/16 2.09e-6 / 0.0197, ConvNeXt-Tiny 7.11e-7 / 0.00739 (each row
+# layer's two partials rounded to bf16 before their f32 sum); the step
+# loss 0, update 1.80e-6; planted g_backward 1.51, world_grads 1.00 in
+# update (loss 0: both act in the backward only).  The f32 forward bars
+# are the JAX tests' 1e-5 (4.8x and 14x the readings); bf16's and the
+# step's sit at about 2x and 5.6x theirs, 1e5x below the faults.
+TP_FLOOR_X = 3.0
+TP_TOL = {"vit_float32": {"logits": 1e-5}, "vit_bfloat16": {"logits": 4e-2},
+          "convnext_float32": {"logits": 1e-5},
+          "convnext_bfloat16": {"logits": 1.5e-2},
+          "step": {"loss": 1e-6, "update": 1e-5}}
+
+
+@functools.lru_cache(maxsize=2)
+def _tp_reference(family: str, seed: int):
+    """_family_model's ViT-B/16 or ConvNeXt-Tiny on the CPU (made once a
+    process)."""
+    return _family_model(family, "b_16" if family == "vit" else "tiny",
+                         seed)
+
+
+def _tp_model(family: str, seed: int, dtype: str, device, mesh):
+    """ViT-B/16 or ConvNeXt-Tiny from _family_model's weights in
+    ``dtype`` (f32: 'highest'), on ``device``, split over ``mesh``'s
+    model axis when a mesh is given."""
+    import dataclasses
+
+    from irp_tpu_torch.models.classifier import Classifier
+    from irp_tpu_torch.parallel.mesh import shard_variables
+
+    ref = _tp_reference(family, seed)
+    cfg = ref.config if dtype == "bfloat16" else dataclasses.replace(
+        ref.config, compute_dtype="float32", precision="highest")
+    model = Classifier(cfg)
+    model.load_state_dict(ref.state_dict())
+    model = model.to(device=device, memory_format=torch.channels_last)
+    if mesh is not None:
+        [model] = shard_variables(mesh, model)
+    return model.eval()
+
+
+def _tp_forward(seed: int, mesh, family: str, dtype: str) -> dict:
+    """The eval forward of TP_B normalized images; logits and the
+    forward's ms (host clock around a synchronized call, after a warm
+    one)."""
+    dev = torch.device("cuda:0")
+    model = _tp_model(family, seed, dtype, dev, mesh)
+    size = model.config.image_size
+    x = torch.randn((TP_B, 3, size, size), generator=torch.Generator()
+                    .manual_seed(seed + 11)).to(dev)
+    x = x.to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(x)
+        torch.cuda.synchronize()
+    return {"logits": logits.float().cpu(),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+@contextlib.contextmanager
+def _tp_fault(fault: str, mesh):
+    """A planted fault of tensor parallelism, for the gate to catch:
+    'g_backward', the row layers' reduce with an all-reduce backward
+    (the gradients upstream of each row layer times the model axis);
+    'world_grads', the gradients summed over the world instead of the
+    data group; 'none', the program as it is."""
+    from irp_tpu_torch.parallel import distributed, tensor
+    from irp_tpu_torch.train import step
+
+    saved = {"reduce": tensor.reduce_from_model,
+             "grads": step.all_reduce_grads}
+    if fault == "g_backward":
+        tensor.reduce_from_model = distributed.all_reduce_sum_autograd
+    elif fault == "world_grads":
+        step.all_reduce_grads = lambda params, group: saved["grads"](
+            params, mesh.world_group)
+    try:
+        yield
+    finally:
+        tensor.reduce_from_model = saved["reduce"]
+        step.all_reduce_grads = saved["grads"]
+
+
+def _tp_step(seed: int, mesh, train, info, fault: str = "none") -> dict:
+    """One f32 ('highest') SGD train_step of ViT-B/16 with mixup and
+    class weights on a given global batch of TP_B and given draws; the
+    loss, the whole trainable weights after it (gathered over the model
+    axis), the step's ms (host clock, synchronized)."""
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.ops.mix import sample_mix_draws
+    from irp_tpu_torch.ops.preprocess import sample_augment_draws
+    from irp_tpu_torch.parallel.mesh import gather_variables
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.state import create_train_state
+    from irp_tpu_torch.train.step import StepConfig, train_step
+
+    dev = torch.device("cuda:0")
+    model = _tp_model("vit", seed, "float32", dev, mesh)
+    set_mode(model, True)
+    state = create_train_state(
+        model, TrainConfig(seed=seed, optimizer="sgd", learning_rate=0.1,
+                           schedule="constant"), model.config)
+    size, src = model.config.image_size, train.images.shape[1]
+    scfg = StepConfig(intensity="medium", out_size=size,
+                      compute_dtype=torch.float32, mixup_alpha=PAR_MIXUP)
+    images = torch.from_numpy(train.images[:TP_B]).to(dev)
+    labels = torch.from_numpy(train.labels[:TP_B]).long().to(dev)
+    draws = sample_augment_draws(torch.Generator().manual_seed(seed), TP_B,
+                                 src, src, "medium").to(dev)
+    mix = sample_mix_draws(np.random.default_rng(seed), PAR_MIXUP, 0.0, size,
+                           size)
+    cw = torch.tensor(info.class_weights, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _tp_fault(fault, mesh):
+        m = train_step(state, images, labels, scfg, cw, aug_draws=draws,
+                       mix_draws=mix, mesh=mesh)
+        loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    whole = (gather_variables(mesh, model) if mesh is not None
+             else model.state_dict())
+    keep = [n for n, p in model.named_parameters() if p.requires_grad]
+    return {"losses": [loss], "ms": ms,
+            "state": {k: whole[k].detach().cpu().clone() for k in keep}}
+
+
+def _tp_gaps(got: dict, want: dict, init: dict) -> dict:
+    """The ViT step's 'loss' and 'update' gaps (TP_TOL's comment)."""
+    keys = sorted(want["state"])
+    d_got = torch.cat([(got["state"][k] - init[k]).double().ravel()
+                       for k in keys])
+    d_want = torch.cat([(want["state"][k] - init[k]).double().ravel()
+                        for k in keys])
+    g, w = got["losses"][0], want["losses"][0]
+    return {"loss": abs(g - w) / abs(w),
+            "update": float((d_got - d_want).norm() / d_want.norm())}
+
+
+def _tp_fit_final(seed: int, mesh, work: str, rank: int) -> dict:
+    """On a rank of the 1 x 2 mesh: ResNet50/224 bf16 'auto' with its
+    head split, fit (Adam, PAR_EPOCHS x PAR_STEPS steps at B=64, eval on
+    PAR_VAL, resident) then train_final_model on the whole train set
+    (one epoch, checkpoints in the rank's own directory); the launches
+    of both, whether the final .npz loads (load_predictor, this process)
+    to the gathered model bit for bit."""
+    from types import SimpleNamespace
+
+    from irp_tpu_torch import tracking
+    from irp_tpu_torch.config import TrainConfig
+    from irp_tpu_torch.infer import load_predictor
+    from irp_tpu_torch.train import fit
+    from irp_tpu_torch.train.final import train_final_model
+
+    train, val, info = _train_sets(seed, PAR_TRAIN, PAR_VAL)
+    cfg = _train_model_cfg(fused_frozen_blocks="auto")
+    tc = TrainConfig(batch_size=PAR_B2, max_epochs=PAR_EPOCHS, patience=99,
+                     seed=seed, steps_per_epoch_override=PAR_STEPS,
+                     eval_samples=PAR_VAL)
+    tracking.set_tracking_uri(f"{work}/tp_mlruns{rank}")
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(train, val, info, cfg, tc, mesh=mesh, device="cuda:0")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    # recommended_epochs: 0.8 x max_epochs, rounded down: one epoch
+    best = SimpleNamespace(params={**FINAL_PARAMS, "batch_size": PAR_B2,
+                                   "max_epochs": 2}, user_attrs={})
+    study = SimpleNamespace(best_trial=best, get_trials=lambda: [best])
+    ckpt = f"{work}/tp_ckpt{rank}"
+    t0 = time.perf_counter()
+    final = train_final_model(study, train, val, info, model_base=cfg,
+                              train_base=tc, device="cuda:0",
+                              checkpoint_dir=ckpt, experiment="tp_final",
+                              verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    final_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    whole = {k: v.detach().cpu() for k, v in
+             final.state.model.state_dict().items()}
+    npz_equal = None
+    if rank == 0:
+        pred = load_predictor(f"{ckpt}/final_model.npz", cfg=cfg,
+                              device="cuda:0")
+        loaded = pred.model.state_dict()
+        npz_equal = all(torch.equal(loaded[k].cpu(), t)
+                        for k, t in whole.items()
+                        if not k.endswith("num_batches_tracked"))
+    return {"history": res.history, "fit_s": fit_s, "final_s": final_s,
+            "step_ms": res.history["train_ms"][-1] / PAR_STEPS,
+            "fit_state": _cpu_state(res.state.model), "final_state": whole,
+            "final_acc": final.test_acc, "final_loss": final.test_loss,
+            "final_run": final.run_id, "npz_equal": npz_equal,
+            "wrote": os.path.exists(f"{ckpt}/final_model.npz"),
+            "launches": launches}
+
+
+def _tp_runs(seed: int, mesh, work: str = None, rank: int = 0) -> dict:
+    """The model-axis runs on a rank of ``mesh`` (data=1 x model=2 over
+    the two ranks on cuda:0) or, with ``mesh`` None, in one process: the
+    ViT-B/16 and ConvNeXt-Tiny forwards in TP_DTYPES and the ViT step;
+    on a rank also the step with each of TP_FAULTS planted, then the
+    ResNet50 fit and final run."""
+    train, _, info = _train_sets(seed, PAR_TRAIN, PAR_VAL)
+    out = {}
+    t0 = time.perf_counter()
+    for family in ("vit", "convnext"):
+        for dtype in TP_DTYPES:
+            out[f"{family}_{dtype}"] = _tp_forward(seed, mesh, family, dtype)
+    out["step"] = _tp_step(seed, mesh, train, info)
+    if mesh is not None:
+        for fault in TP_FAULTS:
+            out[f"step_{fault}"] = _tp_step(seed, mesh, train, info, fault)
+        out["resnet50"] = _tp_fit_final(seed, mesh, work, rank)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _two_rank_worker(rank: int, port: int, work: str, seed: int) -> None:
     """One rank of the two-rank runs: a gloo group of two processes that
     share cuda:0 (NCCL refuses two ranks on one device)."""
     from irp_tpu_torch.parallel import distributed
     from irp_tpu_torch.parallel.mesh import make_mesh
 
+    from irp_tpu_torch.config import MeshConfig
+
     distributed.initialize(f"localhost:{port}", 2, rank, device="cuda:0",
                            backend="gloo")
     try:
         out = _par_runs(seed, make_mesh())
         out["backend"] = torch.distributed.get_backend()
+        out["tp"] = _tp_runs(seed, make_mesh(MeshConfig(data=1, model=2)),
+                             work, rank)
     finally:
         distributed.shutdown()
     torch.save(out, f"{work}/rank{rank}.pt")
@@ -4375,6 +4633,100 @@ def _par_two_ranks(seed: int, work: str) -> dict:
         for fault in PAR_FAULTS[dtype]:
             report["planted"][f"step_{dtype}_{fault}"] = gaps(
                 ranks[0], f"step_{dtype}_{fault}", f"step_{dtype}")
+    report["tp"] = _tp_report(seed, [r["tp"] for r in ranks])
+    return report
+
+
+def _tp_checks(tp: dict) -> dict:
+    """The model axis's gates (TP_TOL's comment); records each planted
+    fault's update gap over its limit in ``tp``."""
+    checks, ratios = {}, {}
+    for key, ok in tp["ranks_bit_equal"].items():
+        checks[f"tp_{key}_ranks_bit_equal"] = ok
+    for key, bars in TP_TOL.items():
+        limit = {name: max(TP_FLOOR_X * tp["floor"][key][name], bar)
+                 for name, bar in bars.items()}
+        for name in limit:
+            checks[f"tp_{key}_{name}"] = tp["gaps"][key][name] <= limit[name]
+        if key == "step":
+            for fault in TP_FAULTS:
+                ratios[fault] = tp["planted"][fault]["update"] / \
+                    limit["update"]
+                checks[f"tp_step_planted_{fault}_caught"] = \
+                    ratios[fault] > 1.0
+    tp["planted_gap_over_limit"] = ratios
+    for k, v in tp["resnet50"]["checks"].items():
+        checks[f"tp_resnet50_{k}"] = bool(v)
+    return checks
+
+
+def _tp_report(seed: int, ranks: list) -> dict:
+    """The model axis's two ranks against one process on the same inputs,
+    twice (the second run is the floor)."""
+    t0 = time.perf_counter()
+    ref = _tp_runs(seed, None)
+    again = _tp_runs(seed, None)
+    r0, r1 = ranks
+    report = {"ranks_wall_s": [r["seconds"] for r in ranks],
+              "reference_wall_s": time.perf_counter() - t0, "gaps": {},
+              "floor": {}, "planted": {}, "ranks_bit_equal": {}, "ms": {}}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for family in ("vit", "convnext"):
+        for dtype in TP_DTYPES:
+            key = f"{family}_{dtype}"
+            want = ref[key]["logits"]
+            report["gaps"][key] = {"logits": rel(r0[key]["logits"], want)}
+            report["floor"][key] = {"logits": rel(again[key]["logits"],
+                                                  want)}
+            report["ranks_bit_equal"][key] = torch.equal(
+                r0[key]["logits"], r1[key]["logits"])
+            report["ms"][f"{key}_forward"] = {
+                "rank0": r0[key]["ms"], "rank1": r1[key]["ms"],
+                "one_process": ref[key]["ms"]}
+    init = _cpu_state(_tp_reference("vit", seed))
+    report["gaps"]["step"] = _tp_gaps(r0["step"], ref["step"], init)
+    report["floor"]["step"] = _tp_gaps(again["step"], ref["step"], init)
+    for fault in TP_FAULTS:
+        report["planted"][fault] = _tp_gaps(r0[f"step_{fault}"],
+                                            ref["step"], init)
+    report["ranks_bit_equal"]["step"] = all(
+        torch.equal(t, r1["step"]["state"][k])
+        for k, t in r0["step"]["state"].items())
+    report["ms"]["vit_step"] = {"rank0": r0["step"]["ms"],
+                                "rank1": r1["step"]["ms"],
+                                "one_process": ref["step"]["ms"]}
+    n0, n1 = r0["resnet50"], r1["resnet50"]
+    whole = _par_init(seed)
+    report["resnet50"] = {
+        "history": n0["history"], "fit_s": [n0["fit_s"], n1["fit_s"]],
+        "final_s": [n0["final_s"], n1["final_s"]],
+        "final_acc": n0["final_acc"], "final_loss": n0["final_loss"],
+        "launches": {"rank0": n0["launches"], "rank1": n1["launches"]},
+        "checks": {
+            "histories_equal": all(
+                n0["history"][k] == n1["history"][k]
+                for k in ("train_loss", "train_acc", "val_loss", "val_acc")),
+            "losses_finite": all(math.isfinite(v) for v in
+                                 n0["history"]["train_loss"]
+                                 + n0["history"]["val_loss"]
+                                 + [n0["final_loss"]]),
+            "fit_models_whole_and_bit_equal": all(
+                t.shape == whole[k].shape
+                and torch.equal(t, n1["fit_state"][k])
+                for k, t in n0["fit_state"].items()),
+            "final_models_bit_equal": all(
+                torch.equal(t, n1["final_state"][k])
+                for k, t in n0["final_state"].items()),
+            "final_npz_equals_gathered_model": bool(n0["npz_equal"]),
+            "only_world_rank_0_wrote": n0["wrote"] and not n1["wrote"]
+            and n0["final_run"] is not None and n1["final_run"] is None,
+            "k1_and_k2_launched_on_each_rank": all(
+                v > 0 for n in (n0, n1) for v in n["launches"].values())}}
+    report["ms"]["resnet50_fit_step"] = {"rank0": n0["step_ms"],
+                                         "rank1": n1["step_ms"]}
     return report
 
 
@@ -4656,6 +5008,7 @@ def phase_parallel(out: dict, seed: int) -> None:
             checks[f"two_ranks_{key}_planted_{fault}_caught"] = \
                 ratios[f"{key}_{fault}"] > 1.0
     two["planted_gap_over_limit"] = ratios
+    checks.update(_tp_checks(two["tp"]))
     variables = _random_variables(seed)
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/resnet50_224.npz"
@@ -4679,7 +5032,10 @@ def phase_parallel(out: dict, seed: int) -> None:
     # or mesh, nor the sequential sweep, nor the planted faults' runs
     launches = dict.fromkeys(_launch_counts(), 0)
     for counts in (w1["launches"]["nccl_world1"], two["launches"]["rank0"],
-                   two["launches"]["rank1"], report["replicas"]["launches"],
+                   two["launches"]["rank1"],
+                   two["tp"]["resnet50"]["launches"]["rank0"],
+                   two["tp"]["resnet50"]["launches"]["rank1"],
+                   report["replicas"]["launches"],
                    report["local_mesh"]["launches"]["predictor"],
                    report["local_mesh"]["launches"]["extract_features"],
                    report["sweep"]["launches"]):

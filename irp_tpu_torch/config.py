@@ -162,8 +162,8 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device mesh layout: ``data`` devices (or processes) that split each
-    batch, ``model`` devices that would split the head and the ViT and
-    ConvNeXt blocks (tensor parallelism; only 1 is ported,
+    batch, ``model`` devices (or processes) that split the head and the
+    ViT and ConvNeXt blocks (Megatron tensor parallelism,
     ``parallel/mesh.py``)."""
 
     data: int = -1  # -1: every device on the data axis

@@ -14,9 +14,9 @@
   re-permuted on the device each epoch (``local_reshuffle``).  All
   permutations are numpy draws from the seed, as in the JAX package, so
   both packages see the same order.  Over a process mesh
-  (``parallel/mesh.py``) each resident set holds this rank's row of the
-  JAX package's (D, N/D) layout, and the stream path copies this rank's
-  rows of each host batch.
+  (``parallel/mesh.py``) each resident set holds the row of the JAX
+  package's (D, N/D) layout at this rank's data index, and the stream
+  path copies that index's rows of each host batch.
 - :class:`HBMFoldPool` keeps the whole train cache of a sweep on the
   device once; ``select_fold`` regroups a fold's samples into a prefix
   (:class:`HBMFoldView`) with one on-device gather.
@@ -299,7 +299,9 @@ def build_cache(shard_paths: Sequence[str], class_names: Sequence[str],
 
 def data_shard(mesh) -> Tuple[int, int]:
     """(D, r): the data axis's size and this process's place on it, for
-    the resident sets; (1, 0) without a mesh.  A local mesh of several
+    the resident sets; (1, 0) without a mesh.  The ranks of one model
+    group share r, and hold the same rows (the JAX package's
+    ``P('data')``, replicated over ``model``).  A local mesh of several
     devices holds no resident train or eval set: training runs one
     process per device."""
     if mesh is None:

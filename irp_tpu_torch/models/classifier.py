@@ -45,6 +45,7 @@ from irp_tpu_torch.models.layers import (Linear, at_least_f32, lecun_normal_,
 from irp_tpu_torch.models.resnet import BOTTLENECK_DEPTHS, STAGE_NAMES, ResNet
 from irp_tpu_torch.models.vit import (VisionTransformer, resolve_num_heads,
                                       vit_default_trainable_stages)
+from irp_tpu_torch.parallel.tensor import ColumnParallelLinear
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
@@ -350,7 +351,12 @@ class Classifier(nn.Module):
             y = drop1(y, rate, masks[0], generator)
         y = relu(dense1(y))
         if self.training:
-            y = drop2(y, rate, masks[1], generator)
+            mask = masks[1]
+            if mask is not None and isinstance(dense1, ColumnParallelLinear):
+                # tensor parallelism: the mask is the whole hidden width's
+                # (``train/step.py`` draws it so), y this rank's columns
+                mask = dense1.local_columns(mask)
+            y = drop2(y, rate, mask, generator)
         return at_least_f32(dense2(y))
 
     def head_eval(self, feats):

@@ -44,6 +44,7 @@ from irp_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear,
                                          flax_init_, global_pool,
                                          lecun_normal_, nhwc)
 from irp_tpu_torch.models.resnet import frozen_scope, remat_call
+from irp_tpu_torch.parallel.distributed import copy_to_model
 
 # torchvision.models.vision_transformer's published sizes.  vit_h_14 is
 # the one family member whose head_dim is not 64 (1280/16 = 80), so it
@@ -86,7 +87,12 @@ def vit_default_trainable_stages(num_layers: int) -> tuple:
 
 class SelfAttention(nn.Module):
     """torchvision's ``nn.MultiheadAttention`` parameter layout (packed
-    ``in_proj``, ``out_proj``) with the JAX package's numerics."""
+    ``in_proj``, ``out_proj``) with the JAX package's numerics.
+
+    Under tensor parallelism (``parallel/mesh.py::shard_variables``)
+    ``model_group`` is set, ``num_heads`` counts this rank's heads,
+    ``in_proj`` holds their q, k and v rows (packed in that order),
+    ``out_proj`` is row-parallel and the input goes through *f*."""
 
     def __init__(self, embed_dim, num_heads, compute_dtype):
         super().__init__()
@@ -99,15 +105,20 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim, compute_dtype)
         self.compute_dtype = compute_dtype
+        self.model_group = None
 
     def qkv(self, y):
-        """(B, S, E) -> q, k, v as (B, H, S, D) in the compute dtype."""
+        """(B, S, E) -> q, k, v as (B, H, S, D) in the compute dtype (H
+        this rank's heads under tensor parallelism)."""
         dt = self.compute_dtype
-        b, s, e = y.shape
+        if self.model_group is not None:
+            y = copy_to_model(y, self.model_group)
+        b, s, _ = y.shape
         h = self.num_heads
         qkv = F.linear(y.to(dt), self.in_proj_weight.to(dt),
                        self.in_proj_bias.to(dt))
-        return qkv.view(b, s, 3, h, e // h).permute(2, 0, 3, 1, 4).unbind(0)
+        d = qkv.shape[-1] // (3 * h)
+        return qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
 
     def forward(self, y):
         q, k, v = self.qkv(y)

@@ -1,5 +1,5 @@
-"""Process groups and the collectives of the data axis (the JAX package's
-``parallel/distributed.py``).
+"""Process groups and the collectives of the data and model axes (the JAX
+package's ``parallel/distributed.py``).
 
 JAX runs one controller per host over every local device; the PyTorch
 idiom is one process per device.  :func:`initialize` joins this process
@@ -15,6 +15,12 @@ only: those are the two that gloo runs on CUDA tensors, so a gloo group
 of ranks that share one card and an NCCL group of one rank per card run
 the same code.  A failed collective raises; nothing retries it on the
 host.
+
+Tensor parallelism (``parallel/tensor.py``) needs two differentiable
+collectives over the model axis, Megatron's *f* and *g*:
+:func:`copy_to_model` (identity forward, SUM of the gradients backward)
+and :func:`reduce_from_model` (SUM forward, identity backward).  Both
+reduce in f32 (f64 stays).
 """
 
 from __future__ import annotations
@@ -128,6 +134,15 @@ def process_count() -> int:
     return _world()
 
 
+def global_batch_for(per_device_batch: int) -> int:
+    """The global batch of a run whose every device takes
+    ``per_device_batch`` rows: times the ranks of the group (one device
+    each), or without a group times the local cards (one on a host
+    without a card)."""
+    n = _world() if is_initialized() else max(torch.cuda.device_count(), 1)
+    return int(per_device_batch) * n
+
+
 def host_shards(shard_paths: Sequence[str],
                 process_index: Optional[int] = None,
                 process_count: Optional[int] = None) -> List[str]:
@@ -169,6 +184,55 @@ def all_reduce_sum_autograd(x: torch.Tensor, group=None) -> torch.Tensor:
     """:func:`all_reduce_sum` out of place, differentiable (BatchNorm's
     global moments)."""
     return _AllReduceSum.apply(x, group)
+
+
+def _f32_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the group in f32 (f64 stays), out of place, in
+    ``t``'s dtype."""
+    wide = t.double() if t.dtype == torch.float64 else t.float()
+    wide = all_reduce_sum(wide.contiguous().clone(), group)
+    return wide.to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: identity forward; the gradients of the ranks of
+    the model group summed backward (each rank's column shard gives its
+    share of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _f32_sum(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: the ranks' partial products summed forward;
+    identity backward (the loss is replicated over the model axis, so
+    each rank's gradient of the sum is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _f32_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """*f* over the model ``group``: the input of a column-parallel
+    layer."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """*g* over the model ``group``: the partial products of a
+    row-parallel layer, summed."""
+    return _ReduceFromModel.apply(x, group)
 
 
 def all_reduce_grads(params, group=None) -> None:

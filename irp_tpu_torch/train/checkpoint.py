@@ -17,6 +17,13 @@ Full training-state checkpoints (:func:`save_checkpoint`,
 ``fit`` needs: parameters and BN statistics, the optimizer's moments and
 step count, lr and wd, and the EMA, as plain tensors in one
 ``torch.save`` file per epoch, ``<dir>/step_<8 digits>.pt``.
+
+Over a process mesh (``mesh=``) every tensor a file holds is whole, as an
+Orbax checkpoint of global arrays is: with a model axis the writers
+gather the ranks' slices first (a collective every rank calls), only
+world rank 0 writes, and :func:`restore_checkpoint` keeps the slices of
+the mesh at hand, so a checkpoint taken at one model-axis size restores
+at another.
 """
 
 from __future__ import annotations
@@ -98,27 +105,61 @@ def export_torch_pth(path: str, model) -> str:
     return path
 
 
-def save_model_npz(path: str, model, meta: Optional[dict] = None) -> str:
-    """Write ``model`` as a :func:`save_weights_npz` artifact (flax layout,
-    ``meta`` alongside); returns the path."""
-    from irp_tpu_torch.models.convert import state_dict_to_jax_variables
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.is_leader
 
-    variables = state_dict_to_jax_variables(model.state_dict())
+
+def save_model_npz(path: str, model, meta: Optional[dict] = None,
+                   mesh=None) -> str:
+    """Write ``model`` as a :func:`save_weights_npz` artifact (flax layout,
+    ``meta`` alongside); returns the path.  ``mesh``: every rank calls,
+    the whole model is gathered and world rank 0 writes it."""
+    from irp_tpu_torch.models.convert import state_dict_to_jax_variables
+    from irp_tpu_torch.parallel.mesh import gather_variables
+
+    state_dict = gather_variables(mesh, model)
+    if not _writes(mesh):
+        return path
+    variables = state_dict_to_jax_variables(state_dict)
     return save_weights_npz(path, variables["params"],
                             variables["batch_stats"], meta=meta)
 
 
-def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None) -> str:
+def _by_name(state: dict, fn) -> dict:
+    """A ``TrainState.state_dict()`` with ``fn`` applied to each of its
+    ``{state_dict name: tensor}`` dicts: the model's, each moment's and
+    the EMA's."""
+    opt = state["optimizer"]
+    return {**state, "model": fn(state["model"]), "optimizer": {
+        **opt, "moments": {k: fn(v) for k, v in opt["moments"].items()},
+        "ema": None if opt.get("ema") is None else fn(opt["ema"])}}
+
+
+def _whole_state(mesh, state) -> dict:
+    """``state.state_dict()`` with the model axis's slices gathered
+    whole."""
+    from irp_tpu_torch.parallel.mesh import gather_tensors
+
+    return _by_name(state.state_dict(),
+                    lambda tensors: gather_tensors(mesh, tensors))
+
+
+def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
+                    mesh=None) -> str:
     """Write ``state`` (a ``train/state.py::TrainState``) to
     ``ckpt_dir/step_<step>.pt`` (``step`` defaults to the optimizer's step
-    count); returns the path."""
+    count); returns the path.  ``mesh``: every rank calls, the tensors
+    are gathered whole and world rank 0 writes them."""
     import torch
 
     step = state.step if step is None else int(step)
-    os.makedirs(os.path.abspath(ckpt_dir), exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}.pt")
+    whole = _whole_state(mesh, state)
+    if not _writes(mesh):
+        return path
+    os.makedirs(os.path.abspath(ckpt_dir), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(state.state_dict(), tmp)
+    torch.save(whole, tmp)
     os.replace(tmp, path)
     return path
 
@@ -138,11 +179,16 @@ def latest_checkpoint(ckpt_dir: str):
     return best[0], best[1] + 1
 
 
-def restore_checkpoint(path: str, state):
+def restore_checkpoint(path: str, state, mesh=None):
     """Load a :func:`save_checkpoint` file into ``state`` in place (the
-    tensors keep their devices); returns ``state``."""
+    tensors keep their devices); returns ``state``.  ``mesh``: with a
+    model axis, each rank keeps its slices of the file's whole
+    tensors."""
     import torch
 
-    state.load_state_dict(torch.load(path, map_location="cpu",
-                                     weights_only=True))
+    from irp_tpu_torch.parallel.mesh import shard_tensors
+
+    whole = torch.load(path, map_location="cpu", weights_only=True)
+    state.load_state_dict(_by_name(
+        whole, lambda tensors: shard_tensors(mesh, tensors)))
     return state

@@ -15,10 +15,13 @@ package's ``train/final.py``).
   correct/incorrect galleries go to the tracking run with
   ``final_model.npz`` and ``final_model.pth``.
 - :func:`display_model_visualizations` finds those figures back.
-- ``mesh=`` a process mesh trains data-parallel (``train/fit.py``):
-  every rank runs ``train_final_model`` alike; only rank 0 writes the
-  checkpoints, the tracking run, the figures and the artifacts, and
-  every rank reads the same checkpoint on ``resume``.
+- ``mesh=`` a process mesh trains data-parallel, and with a model axis
+  tensor-parallel too (``train/fit.py``): every rank runs
+  ``train_final_model`` alike; the checkpoints hold whole tensors (the
+  ranks' slices gathered) and the artifacts come from the whole model
+  ``fit`` returns; only world rank 0 writes the checkpoints, the
+  tracking run, the figures and the artifacts, and every rank reads the
+  same checkpoint on ``resume``.
 """
 
 from __future__ import annotations
@@ -243,13 +246,18 @@ def train_final_model(study, train_cached: CachedDataset,
                     print(f"Resuming from {restore_from} "
                           f"(epoch {start_epoch})")
 
+            pmesh = mesh if mesh is not None and mesh.is_process else None
+
             def on_epoch_end(epoch, val_acc, state=None):
-                if state is not None and leader:
+                # every rank calls: a model axis's slices are gathered
+                # whole, and world rank 0 writes
+                if state is not None:
                     save_model_npz(
                         os.path.join(checkpoint_dir,
                                      f"checkpoint_epoch_{epoch:03d}.npz"),
-                        state.model, meta=npz_meta)
-                    save_checkpoint(checkpoint_dir, state, step=epoch)
+                        state.model, meta=npz_meta, mesh=pmesh)
+                    save_checkpoint(checkpoint_dir, state, step=epoch,
+                                    mesh=pmesh)
                 return False
 
         result = fit(train_cached, None, info, model_cfg, train_cfg,

@@ -11,8 +11,18 @@ process per device after ``parallel.distributed.initialize`` or under
 ``torchrun``) splits every global batch over the ranks; every rank runs
 this function with the same arguments, holds its rows of the resident
 sets, and decides early stopping on the validation accuracy of the whole
-set, so every rank stops on the same epoch.  Only rank 0 logs to
-``logger``; the caller writes files on rank 0 only.
+set, so every rank stops on the same epoch.  Only world rank 0 logs to
+``logger``; the caller writes files on world rank 0 only.
+
+Tensor parallelism: a process mesh with a model axis
+(``MeshConfig(data=D, model=M)``, D x M ranks) also splits the head and
+the ViT and ConvNeXt blocks over each model group
+(``parallel/mesh.py::shard_variables``).  The ranks of one model group
+hold the same rows of each batch; the data-axis sums run over the data
+groups.  The optimizer's moments and the best-epoch snapshot are each
+rank's slices, and a resumed checkpoint's whole tensors are sliced as
+they load; the returned model is gathered whole on every rank
+(``unshard_variables``).
 
 Resume: ``restore_from`` / ``start_epoch`` continue a run from a
 ``train/checkpoint.py`` file (every rank reads the same file).  Every epoch's random draws come from
@@ -41,7 +51,7 @@ from irp_tpu_torch.models.convert import (load_torch_checkpoint,
                                           merge_pretrained)
 from irp_tpu_torch.models.resnet import sync_batch_stats
 from irp_tpu_torch.parallel.distributed import all_reduce_sum, broadcast
-from irp_tpu_torch.parallel.mesh import shard_variables
+from irp_tpu_torch.parallel.mesh import shard_variables, unshard_variables
 from irp_tpu_torch.train.loop import (_result, evaluate, evaluate_hbm,
                                       restore_weights, set_mode,
                                       snapshot_weights, train_epoch,
@@ -174,10 +184,10 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     (``subset_by_shards(with_images=False)``), which still gives the
     steps per epoch.
 
-    ``mesh``: a process mesh for data parallelism (module docstring), or
-    a local mesh of one device (the same as ``device``).  A local mesh of
-    several devices raises: data-parallel training runs one process per
-    device.
+    ``mesh``: a process mesh for data (and tensor) parallelism (module
+    docstring), or a local mesh of one device (the same as
+    ``device``).  A local mesh of several devices raises: data-parallel
+    training runs one process per device.
     """
     if hbm_train is not None and mode not in ("hbm", "auto"):
         raise ValueError("hbm_train requires mode='hbm'")
@@ -208,7 +218,8 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
             # every rank must take one mode: 'stream' if any rank's
             # memory asks for it
             votes = torch.tensor([float(mode == "stream")], device=dev)
-            mode = ("stream" if float(all_reduce_sum(votes, pmesh.group))
+            mode = ("stream" if float(all_reduce_sum(votes,
+                                                     pmesh.world_group))
                     else "hbm")
         if verbose:
             print(f"fit: mode=auto resolved to '{mode}'")
@@ -248,7 +259,7 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
     if restore_from is not None:
         from irp_tpu_torch.train.checkpoint import restore_checkpoint
 
-        restore_checkpoint(restore_from, state)
+        restore_checkpoint(restore_from, state, mesh=pmesh)
 
     cw_np = (np.asarray(info.class_weights, np.float32)
              if use_class_weights else None)
@@ -338,10 +349,10 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
                            class_weights=cw_np)
             if pmesh is None:
                 return res
-            # every rank scored the whole set: rank 0's logits decide, so
-            # that every rank stops on the same epoch
+            # every rank scored the whole set: world rank 0's logits
+            # decide, so that every rank stops on the same epoch
             logits = broadcast(torch.from_numpy(res.logits).to(dev), 0,
-                               pmesh.group)
+                               pmesh.world_group)
             return _result(logits.cpu().numpy(), res.labels, cw_np)
 
     def snapshot(state):
@@ -358,9 +369,10 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
                                     or len(val_cached) == 0):
         # no validation, no best restore: hand back the final EMA weights
         restore_weights(model, snapshot(state))
-    set_mode(model, False)
     if pmesh is not None:
         sync_batch_stats(model, None)
+        unshard_variables(pmesh, model)
+    set_mode(model, False)
     return FitResult(state=state, history=history, best_val_acc=best,
                      steps_per_epoch=steps_per_epoch,
                      eval_step=run_eval_step, device=dev, mesh=mesh)

@@ -15,6 +15,12 @@ attributes written at run time (:func:`set_opt_hyperparams`), the
 schedule's value is a host float, so a step never waits on the device.
 Frozen parameters are not in the optimizer at all.
 
+Under tensor parallelism (``parallel/mesh.py::shard_variables``) the
+optimizer is made over the model's parameters as they are, each rank's
+slices of the sharded ones, so Adam's and SGD's moments and the EMA are
+slices too: every update is elementwise and needs no collective (the
+checkpoints gather them whole, ``train/checkpoint.py``).
+
 ``ema_decay`` > 0 tracks an EMA of the post-update trainable parameters
 (``Optimizer.ema``, as the JAX package's ``_params_ema`` chain slot; a
 frozen parameter's EMA is the parameter itself) and of the running

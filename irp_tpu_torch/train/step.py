@@ -25,6 +25,15 @@ summed over the ranks with one flat all-reduce (SUM, not the mean
 ``DistributedDataParallel`` takes: each rank's loss is already its
 share of the global mean); the loss and the correct count are summed
 over the ranks.
+
+With a model axis (``MeshConfig(data=D, model=M)``) "the ranks" above are
+the data group's (``mesh.group``, ``mesh.size`` = D, ``mesh.index`` this
+rank's data index): the M ranks of a model group hold the same rows and
+draws, run the Megatron layers' collectives over the model group inside
+the forward and backward (``parallel/tensor.py``), and end a step with the
+same replicated gradients; the head's second dropout mask is drawn for
+the whole hidden width and sliced to the rank's columns
+(``Classifier.head``).
 """
 
 from __future__ import annotations

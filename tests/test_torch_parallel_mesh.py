@@ -3,7 +3,10 @@ resident sets, mixing and inference, against the JAX package on the 8
 virtual CPU devices.
 
 - ``MeshConfig.axis_sizes`` and ``host_shards`` equal the JAX package's
-  over a grid of cases; ``model>1`` raises naming A14b.
+  over a grid of cases.  The 2-D layout: a local mesh of D x M devices
+  keeps the first device of each model row as its data axis (the JAX
+  package's ``reshape(data, model)``) and refuses too few devices; of a
+  process mesh's D x M ranks, world rank 0 alone leads.
 - A local mesh repeats the CPU (``torch.device`` has no distinct CPU
   devices): ``Predictor(mesh=)`` and ``extract_features(mesh=)`` on
   ``[cpu, cpu]`` equal the unsharded paths (1e-6, the JAX package's
@@ -75,9 +78,33 @@ def test_host_shards_equal_jax():
         == (0, 1)
 
 
-def test_model_axis_raises_naming_a14b():
-    with pytest.raises(NotImplementedError, match="A14b"):
-        make_mesh(MeshConfig(data=1, model=2), devices=CPU2)
+@pytest.mark.parametrize("data,model,n,want", [
+    (2, 2, 4, [0, 2]), (-1, 2, 4, [0, 2]), (1, 2, 4, [0]),
+    (-1, 4, 8, [0, 4]), (3, 1, 4, [0, 1, 2])])
+def test_local_2d_mesh_data_devices(data, model, n, want):
+    devices = [torch.device("cpu", i) for i in range(n)]
+    mesh = make_mesh(MeshConfig(data=data, model=model), devices=devices)
+    assert [d.index for d in mesh.devices] == want
+    assert mesh.shape == {"data": len(want), "model": model}
+    assert mesh.is_leader and not mesh.is_process
+    assert not mesh.tensor_parallel
+
+
+@pytest.mark.parametrize("data,model", [(5, 1), (3, 2), (1, 8)])
+def test_local_2d_mesh_refuses_too_few_devices(data, model):
+    with pytest.raises(ValueError, match=f"needs {data * model} devices"):
+        make_mesh(MeshConfig(data=data, model=model), devices=["cpu"] * 4)
+
+
+@pytest.mark.parametrize("rank,leader", [(0, True), (1, False), (2, False),
+                                         (3, False)])
+def test_only_world_rank_zero_leads(rank, leader):
+    i, j = divmod(rank, 2)
+    mesh = Mesh(["cpu"], group=object(), index=i, size=2,
+                model_group=object(), model_index=j, model_size=2)
+    assert mesh.rank == rank and mesh.is_leader == leader
+    # the data index alone would make rank 1 (data 0) a second leader
+    assert (mesh.index == 0) == (rank in (0, 1))
 
 
 def test_local_mesh():
