@@ -1,0 +1,8 @@
+"""Mean device ms a step spends in the forward part of train_step, from
+CUDA events recorded by hooks on the real step (loops/train.py)."""
+
+from benchmark.metrics._util import mean
+
+
+def read(record):
+    return mean(record["hook_ms"]["forward"])
