@@ -37,6 +37,7 @@ from irp_tpu_torch.models.layers import Conv2d, at_least_f32, flax_init_
 from irp_tpu_torch.parallel.distributed import all_reduce_sum_autograd
 from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
                                            fused_identity_bottleneck)
+from irp_tpu_torch.utils import monitor
 
 STAGE_SIZES = {
     18: (2, 2, 2, 2),
@@ -353,16 +354,23 @@ class ResNet(nn.Module):
     def forward_frozen(self, x):
         """The stem and the first ``frozen_prefix`` stages: the stages run
         without autograd, and the stem too when the prefix is not empty.
-        Only these stages hold fusable blocks."""
+        Only these stages hold fusable blocks.  In train mode it is the
+        span ``train.forward.frozen``, which counts K1's launches."""
         fused = self.fuse_active(x)
         grad = torch.is_grad_enabled()
-        with torch.set_grad_enabled(grad and self.frozen_prefix == 0):
-            x = self.maxpool(F.relu(self.bn1(self.conv1(
-                x.to(self.compute_dtype)))))
-        with torch.set_grad_enabled(False):
-            for name in STAGE_NAMES[:self.frozen_prefix]:
-                for block in getattr(self, name):
-                    x = block(x, fused)
+        span = (monitor.span("train.forward.frozen") if self.training
+                else monitor.NO_SPAN)
+        with span:
+            launches = fused_identity_bottleneck.launches
+            with torch.set_grad_enabled(grad and self.frozen_prefix == 0):
+                x = self.maxpool(F.relu(self.bn1(self.conv1(
+                    x.to(self.compute_dtype)))))
+            with torch.set_grad_enabled(False):
+                for name in STAGE_NAMES[:self.frozen_prefix]:
+                    for block in getattr(self, name):
+                        x = block(x, fused)
+            span.count("k1_launches",
+                       fused_identity_bottleneck.launches - launches)
         return x
 
     def forward_trainable(self, x):

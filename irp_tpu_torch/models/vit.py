@@ -45,6 +45,7 @@ from irp_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear,
                                          lecun_normal_, nhwc)
 from irp_tpu_torch.models.resnet import frozen_scope, remat_call
 from irp_tpu_torch.parallel.distributed import copy_to_model
+from irp_tpu_torch.utils import monitor
 
 # torchvision.models.vision_transformer's published sizes.  vit_h_14 is
 # the one family member whose head_dim is not 64 (1280/16 = 80), so it
@@ -224,14 +225,20 @@ class VisionTransformer(nn.Module):
     def encode(self, x):
         """Embed and every block, the embedding and the first
         ``frozen_prefix`` blocks without autograd: (B, S, E) before the
-        final LayerNorm."""
+        final LayerNorm.  In train mode those are the span
+        ``train.forward.frozen``."""
         remat = self.remat_blocks and torch.is_grad_enabled()
-        with frozen_scope(self.frozen_prefix > 0):
-            x = self.embed(x)
-        for i, blk in enumerate(self.encoder.layers):
-            frozen = i < self.frozen_prefix
-            with frozen_scope(frozen):
-                x = remat_call(blk, x) if remat and not frozen else blk(x)
+        blocks = list(self.encoder.layers)
+        span = (monitor.span("train.forward.frozen") if self.training
+                else monitor.NO_SPAN)
+        with span:
+            with frozen_scope(self.frozen_prefix > 0):
+                x = self.embed(x)
+            for blk in blocks[:self.frozen_prefix]:
+                with frozen_scope(True):
+                    x = blk(x)
+        for blk in blocks[self.frozen_prefix:]:
+            x = remat_call(blk, x) if remat else blk(x)
         return x
 
     def forward(self, x, sd_masks=None):

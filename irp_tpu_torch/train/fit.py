@@ -33,7 +33,6 @@ uninterrupted one draws.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -59,6 +58,7 @@ from irp_tpu_torch.train.loop import (_result, evaluate, evaluate_hbm,
 from irp_tpu_torch.train.state import create_train_state
 from irp_tpu_torch.train.step import (StepConfig, epoch_step, eval_epoch,
                                       eval_step, train_step)
+from irp_tpu_torch.utils.monitor import DeviceTimer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the reshuffle seed of epoch e is seed + RESHUFFLE_STRIDE * e
@@ -121,31 +121,6 @@ def epoch_rngs(seed: int, epoch: int, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(words[0] >> np.uint64(1)))
     return gen, np.random.default_rng(int(words[1]))
-
-
-class _EpochTimer:
-    """Milliseconds of a span of device work: CUDA events on a card,
-    the host clock on the CPU."""
-
-    def __init__(self, device):
-        self.cuda = device.type == "cuda"
-
-    def __enter__(self):
-        if self.cuda:
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.start.record()
-        else:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            self.end.record()
-            self.end.synchronize()
-            self.ms = self.start.elapsed_time(self.end)
-        else:
-            self.ms = (time.perf_counter() - self.t0) * 1e3
 
 
 @dataclass
@@ -291,13 +266,13 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
         def run_epoch(state, epoch):
             gen, mix_rng = epoch_rngs(seed, epoch, dev)
             set_mode(model, True)
-            with _EpochTimer(dev) as timer:
+            with DeviceTimer(dev) as timer:
                 if epoch > 0 and train_cfg.hbm_reshuffle:
                     hbm.local_reshuffle(seed + RESHUFFLE_STRIDE * epoch)
                 offsets = sampler.epoch_offsets(steps_per_epoch)
                 metrics = epoch_step(state, hbm, offsets, sampler.per_device,
                                      step_cfg, cw, gen, mix_rng, pmesh)
-            train_ms.append(timer.ms)
+            train_ms.append(timer.ms())
             loss = float(metrics["loss"].mean())
             acc = float(metrics["accuracy"].mean()) * 100.0
             return state, loss, acc
@@ -319,10 +294,10 @@ def fit(train_cached: CachedDataset, val_cached: Optional[CachedDataset],
                 return train_step(state, images, labels, step_cfg, cw, gen,
                                   mix_rng, mesh=pmesh)
 
-            with _EpochTimer(dev) as timer:
+            with DeviceTimer(dev) as timer:
                 out = train_epoch(state, run_step, batches,
                                   max_steps=steps_per_epoch)
-            train_ms.append(timer.ms)
+            train_ms.append(timer.ms())
             return out
 
     def run_eval_step(m, images_u8):

@@ -5,7 +5,10 @@ normalization (``ops/preprocess.py``), optional mixup/CutMix
 (``ops/mix.py``), the forward in train mode (the frozen prefix without
 autograd, its identity bottlenecks through K1 on the card under
 ``fused_frozen_blocks`` 'auto' or 'on'), the class-weighted loss, the
-backward and the optimizer update.  Its random draws come from a device
+backward and the optimizer update, each a span (``utils/monitor.py``:
+``train.step`` holding ``train.augment``, ``train.forward`` and
+``train.backward`` per micro-batch, and ``train.optimizer``; the models
+add ``train.forward.frozen``).  Its random draws come from a device
 generator (per-image augmentation, stochastic-depth and dropout masks)
 and a host numpy generator (the per-step mixing scalars).  An epoch is a Python loop over
 the sampler's window offsets; metrics stay on the device until it ends.
@@ -54,6 +57,7 @@ from irp_tpu_torch.parallel.mesh import gather_rows
 from irp_tpu_torch.ops.preprocess import (AugmentDraws, augment_batch_fused,
                                           eval_preprocess_batch,
                                           sample_augment_draws)
+from irp_tpu_torch.utils import monitor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,13 +196,14 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
             dropout_masks, sd_masks = _global_masks(
                 model, cfg.dropout_rate, generator, b, mesh, x_nhwc.device,
                 dropout_masks, sd_masks)
-        logits = model(_nchw(x_nhwc), cfg.dropout_rate, dropout_masks,
-                       generator, sd_masks)
-        denom = None if mesh is None else _denominator(labels,
-                                                       class_weights, mesh)
-        loss = _loss(logits, labels, labels_b, lam, class_weights,
-                     cfg.label_smoothing, denom)
-        with model.precision_scope(x_nhwc):
+        with monitor.span("train.forward"):
+            logits = model(_nchw(x_nhwc), cfg.dropout_rate, dropout_masks,
+                           generator, sd_masks)
+            denom = None if mesh is None else _denominator(
+                labels, class_weights, mesh)
+            loss = _loss(logits, labels, labels_b, lam, class_weights,
+                         cfg.label_smoothing, denom)
+        with monitor.span("train.backward"), model.precision_scope(x_nhwc):
             loss.backward()
         return loss.detach(), _correct(logits.detach(), labels, labels_b,
                                        lam)
@@ -221,11 +226,12 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
         if mesh is not None:
             drop, sd = _global_masks(model, cfg.dropout_rate, generator,
                                      blk, mesh, x_nhwc.device, drop, sd)
-        logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate, drop,
-                       generator, sd)
-        loss = _loss(logits, labels[sl], lb, lam, class_weights,
-                     cfg.label_smoothing, denom)
-        with model.precision_scope(x_nhwc):
+        with monitor.span("train.forward"):
+            logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate, drop,
+                           generator, sd)
+            loss = _loss(logits, labels[sl], lb, lam, class_weights,
+                         cfg.label_smoothing, denom)
+        with monitor.span("train.backward"), model.precision_scope(x_nhwc):
             loss.backward()
         loss_sum += loss.detach()
         correct += _correct(logits.detach(), labels[sl], lb, lam)
@@ -252,28 +258,32 @@ def train_step(state, images_u8, labels, cfg: StepConfig,
     """
     b, h, w = images_u8.shape[:3]
     d = 1 if mesh is None else mesh.size
-    if aug_draws is None:
-        aug_draws = sample_augment_draws(generator, b * d, h, w,
-                                         cfg.intensity)
-    if mesh is not None:
-        aug_draws = aug_draws.rows(_rank_rows(mesh, b))
-    if cfg.mixing and mix_draws is None:
-        mix_draws = sample_mix_draws(mix_rng, cfg.mixup_alpha,
-                                     cfg.cutmix_alpha, cfg.out_size,
-                                     cfg.out_size)
-    x, y_a, y_b, lam = augment_mix(images_u8, labels, cfg, aug_draws,
-                                   mix_draws)
-    state.optimizer.zero_grad()
-    loss, correct = loss_and_grads(state.model, x, y_a, cfg, class_weights,
-                                   y_b, lam, generator, dropout_masks,
-                                   sd_masks, mesh)
-    if mesh is not None:
-        all_reduce_grads(state.optimizer.params.values(), mesh.group)
-        both = all_reduce_sum(torch.stack([loss, correct.to(loss.dtype)]),
-                              mesh.group)
-        loss, correct = both[0], both[1]
-    state.apply_gradients()
-    return {"loss": loss, "accuracy": correct.float() / (b * d)}
+    with monitor.span("train.step"):
+        with monitor.span("train.augment"):
+            if aug_draws is None:
+                aug_draws = sample_augment_draws(generator, b * d, h, w,
+                                                 cfg.intensity)
+            if mesh is not None:
+                aug_draws = aug_draws.rows(_rank_rows(mesh, b))
+            if cfg.mixing and mix_draws is None:
+                mix_draws = sample_mix_draws(mix_rng, cfg.mixup_alpha,
+                                             cfg.cutmix_alpha, cfg.out_size,
+                                             cfg.out_size)
+            x, y_a, y_b, lam = augment_mix(images_u8, labels, cfg,
+                                           aug_draws, mix_draws)
+        state.optimizer.zero_grad()
+        loss, correct = loss_and_grads(state.model, x, y_a, cfg,
+                                       class_weights, y_b, lam, generator,
+                                       dropout_masks, sd_masks, mesh)
+        if mesh is not None:
+            all_reduce_grads(state.optimizer.params.values(), mesh.group)
+            both = all_reduce_sum(torch.stack([loss,
+                                               correct.to(loss.dtype)]),
+                                  mesh.group)
+            loss, correct = both[0], both[1]
+        with monitor.span("train.optimizer"):
+            state.apply_gradients()
+        return {"loss": loss, "accuracy": correct.float() / (b * d)}
 
 
 def epoch_step(state, hbm, offsets, batch_size: int, cfg: StepConfig,

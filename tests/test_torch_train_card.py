@@ -6,6 +6,7 @@ CUDA device they skip.
 - The optimizer on the card (torch's fused Adam / AdamW, SGD's foreach
   ops) against the same optimizer on the CPU: six steps from the same
   gradients, parameters within 1e-6.
+- The frozen prefix's span counts K1's 10 launches per ResNet50 forward.
 """
 
 import numpy as np
@@ -48,3 +49,37 @@ def test_card_optimizer_matches_cpu(kind):
     for (n, a), b in zip(models["cpu"].state_dict().items(),
                          models["cuda"].state_dict().values()):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-6, msg=n)
+
+
+@pytest.mark.gpu
+def test_frozen_span_counts_k1_launches_on_the_card():
+    """``train.forward.frozen`` (models/resnet.py::forward_frozen) counts
+    K1's launches: the 10 frozen identity blocks of ResNet50, once per
+    forward, and the span's device time lies inside the step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from irp_tpu_torch.train.loop import set_mode
+    from irp_tpu_torch.train.step import StepConfig, train_step
+    from irp_tpu_torch.utils import monitor
+
+    cfg = ModelConfig(depth=50, num_classes=10, image_size=224,
+                      fused_frozen_blocks="auto")
+    model = init_classifier(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    set_mode(model, True)
+    state = tstate.create_train_state(model, TrainConfig(batch_size=8),
+                                      cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (8, 256, 256, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = torch.arange(8, device="cuda") % 10
+    step_cfg = StepConfig(out_size=224, compute_dtype=torch.bfloat16)
+    train_step(state, images, labels, step_cfg, generator=gen)  # builds K1
+    with monitor.tracing() as records:
+        for _ in range(2):
+            train_step(state, images, labels, step_cfg, generator=gen)
+    frozen = [r for r in records if r["name"] == "train.forward.frozen"]
+    steps = [r for r in records if r["name"] == "train.step"]
+    assert [r["counts"] for r in frozen] == [{"k1_launches": 10}] * 2
+    for f, s in zip(frozen, steps):
+        assert 0 < f["device_ms"] < s["device_ms"]

@@ -18,8 +18,11 @@ step key, dropout 0.
 - Three epoch-steps of SGD over the same ``EpochSampler`` windows of the
   same resident set (the JAX package's scanned epoch step on one device):
   parameters within 1e-5.
+- The port's own: a ResNet and a ViT step's spans (``utils/monitor.py``)
+  form the step's tree, and tracing them changes no bit of two steps.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -42,11 +45,13 @@ from irp_tpu.train.step import (_augment_mix, _loss_and_updates,
 from irp_tpu_torch.config import ModelConfig, TrainConfig
 from irp_tpu_torch.data.pipeline import (CachedDataset, EpochSampler,
                                          HBMDataset)
+from irp_tpu_torch.models.classifier import init_classifier
 from irp_tpu_torch.models.convert import flax_param_name
 from irp_tpu_torch.train.loop import set_mode
 from irp_tpu_torch.train.state import create_train_state
 from irp_tpu_torch.train.step import (StepConfig, augment_mix,
                                       loss_and_grads, train_step)
+from irp_tpu_torch.utils import monitor
 
 from tests.torch_jax_train import (jax_step_draws, perturbed_variables,
                                    torch_model, uint8_images)
@@ -373,3 +378,61 @@ def test_relu_masks_explain_the_f32_steps_gap_from_float64():
     assert held["layer4"] <= 1e-4 and held["head"] <= 1e-4
     assert held["loss_rel"] <= 1e-5
     assert out["relu_elements_masked_differently"] >= 0
+
+
+SPAN_TREE = [("train.step", None), ("train.augment", "train.step"),
+             ("train.forward", "train.step"),
+             ("train.forward.frozen", "train.forward"),
+             ("train.backward", "train.step"),
+             ("train.optimizer", "train.step")]
+SPAN_CONFIGS = {
+    "resnet": ModelConfig(depth=18, num_classes=3, image_size=32,
+                          compute_dtype="float32", dropout_rate=0.3),
+    "vit": ModelConfig(family="vit", patch_size=8, embed_dim=64,
+                       num_layers=2, num_heads=2, mlp_dim=128,
+                       num_classes=3, image_size=32, hidden_dim=16,
+                       dropout_rate=0.3, compute_dtype="float32",
+                       trainable_stages=("block1", "ln")),
+}
+
+
+def _two_steps(cfg, traced: bool):
+    """Two adam steps of a fresh model on the same batches and draws;
+    returns (losses, state_dict, span records or None)."""
+    model = init_classifier(cfg, torch.Generator().manual_seed(0), "cpu")
+    set_mode(model, True)
+    state = create_train_state(model, TrainConfig(batch_size=4,
+                                                  optimizer="adam"), cfg, 2)
+    images, labels = _batch(seed=3, b=4, size=40)
+    gen = torch.Generator().manual_seed(5)
+    step_cfg = StepConfig(out_size=32, compute_dtype=torch.float32,
+                          dropout_rate=cfg.dropout_rate)
+    with (monitor.tracing(device="cpu") if traced
+          else contextlib.nullcontext()) as records:
+        losses = [train_step(state, torch.from_numpy(images),
+                             torch.from_numpy(labels), step_cfg,
+                             torch.from_numpy(CLASS_WEIGHTS), gen)["loss"]
+                  for _ in range(2)]
+    return torch.stack(losses), model.state_dict(), records
+
+
+@pytest.mark.parametrize("family", sorted(SPAN_CONFIGS))
+def test_train_step_spans_and_tracing_changes_nothing(family):
+    """The train step's span tree (utils/monitor.py), and the same losses
+    and parameters bit for bit with tracing on and off."""
+    cfg = SPAN_CONFIGS[family]
+    loss_off, sd_off, _ = _two_steps(cfg, traced=False)
+    loss_on, sd_on, records = _two_steps(cfg, traced=True)
+    assert torch.equal(loss_on, loss_off)
+    for k, v in sd_off.items():
+        assert torch.equal(sd_on[k], v), k
+    by_seq = {r["seq"]: r for r in records}
+    tree = [(r["name"], by_seq[r["parent"]]["name"]
+             if r["parent"] is not None else None) for r in records]
+    assert tree == SPAN_TREE * 2
+    frozen = [r["counts"] for r in records
+              if r["name"] == "train.forward.frozen"]
+    # K1 counts its launches on the card alone
+    assert frozen == ([{"k1_launches": 0}] * 2 if family == "resnet"
+                      else [{}] * 2)
+    assert all(r["device_ms"] >= 0 for r in records)  # host clock here
