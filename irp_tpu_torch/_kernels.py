@@ -27,12 +27,13 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
                          "irp_tpu_torch")
 SOURCES = ("eval_preprocess", "identity_bottleneck", "pairwise_topk",
-           "copy_floor")
+           "copy_floor", "frozen_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.POINTER(ctypes.c_float)
 # restype, argtypes of every C entry point, by library
 SIGNATURES = {
@@ -49,6 +50,11 @@ SIGNATURES = {
     },
     "copy_floor": {
         "irp_relu_copy": (_I, [_P, _P, ctypes.c_longlong, _P]),
+    },
+    "frozen_epilogue": {
+        "irp_bias_relu": (_I, [_P] * 3 + [_L, _I, _P]),
+        "irp_bias_add_relu": (_I, [_P] * 5 + [_L, _I, _P]),
+        "irp_bias_relu_maxpool": (_I, [_P] * 3 + [_I] * 6 + [_P]),
     },
 }
 

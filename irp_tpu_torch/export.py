@@ -9,8 +9,11 @@ An ``.irpx`` of this package holds:
                      ``irp_tpu_torch::eval_preprocess``, K2 on the card),
                      the model (any family; for a ResNet,
                      ``irp_tpu_torch::identity_bottleneck``, K1, in each
-                     frozen identity block when the predictor ran them
-                     fused), softmax, and the flip average when TTA is on
+                     frozen identity block and
+                     ``irp_tpu_torch::frozen_epilogue`` after the stem's
+                     and each frozen block 0's folded convs when the
+                     predictor ran them fused), softmax, and the flip
+                     average when TTA is on
     program.bN.pt2   the same forward at batch N, for each other rung of
                      the predictor's ``pad_buckets`` ladder
     explain.pt2      (optional) the Grad-CAM program ``forward(weights,
@@ -27,8 +30,9 @@ Shapes are fixed per program, as in the JAX package's artifacts:
 
 The weights ride outside the programs: each program takes them as one
 dict input, every parameter and buffer of the model by name plus, when the
-model runs K1, the BN-folded weights of its fusable blocks (K1 reads the
-folded weights, which the model keeps outside its state_dict).  The loader
+model runs K1, the BN-folded weights of its stem and foldable blocks
+(the fused forward reads the folded weights, which the model keeps
+outside its state_dict).  The loader
 builds that dict once, folding on the device it loads to, so no forward
 refolds and the ``.pt2`` members hold graphs alone.
 
@@ -36,8 +40,8 @@ refolds and the ``.pt2`` members hold graphs alone.
 resolves it on the device it traces on and writes 'on' or 'off': a program
 exported on the CPU stays unfused on the card.  The ops dispatch by device,
 so a program moved to another device (``torch.export.passes.
-move_to_device_pass``) runs there: K1 and K2 launch on the card, their
-plain versions run on the CPU.
+move_to_device_pass``) runs there: K1, K2 and the epilogue launch on the
+card, their plain versions run on the CPU.
 
 A JAX-made ``.irpx`` (StableHLO, ``program.shlo``) is refused by name.
 """
@@ -63,7 +67,7 @@ from irp_tpu_torch._kernels import resolve_device
 from irp_tpu_torch.config import ModelConfig
 from irp_tpu_torch.explain import cam_forward
 from irp_tpu_torch.infer import Predictor, make_predictor, probs_forward
-from irp_tpu_torch.models.resnet import Bottleneck
+from irp_tpu_torch.models.resnet import Bottleneck, FoldCache
 # the programs call the ops these modules register; loading one needs them
 from irp_tpu_torch.ops import cuda_image, cuda_resnet  # noqa: F401
 from irp_tpu_torch.train.checkpoint import load_weights_npz, save_model_npz
@@ -80,9 +84,10 @@ _FOLDED = "._folded."
 
 
 def resolve_fused(model, device) -> bool:
-    """Whether the model's forward on ``device`` runs K1: a ResNet whose
-    ``fused_frozen_blocks`` mode is active there, with fusable blocks
-    (the other families never run it)."""
+    """Whether the model's forward on ``device`` runs K1 (and the folded
+    stem and blocks 0): a ResNet whose ``fused_frozen_blocks`` mode is
+    active there, with fusable blocks (the other families never run
+    it)."""
     if model.config.family != "resnet":
         return False
     probe = torch.empty(0, device=device)
@@ -93,13 +98,14 @@ def resolve_fused(model, device) -> bool:
 def program_inputs(model, fused: bool) -> dict:
     """The dict an exported program takes beside its images: every
     parameter and buffer of ``model`` by state name and, when ``fused``,
-    the BN-folded weights of each fusable block (``cache_folded_weights``
-    must have run) as ``<block>._folded.<i>``."""
+    the BN-folded weights of each foldable module, the stem's (the
+    backbone's own) and each foldable block's (``cache_folded_weights``
+    must have run), as ``<module>._folded.<i>``."""
     out = dict(model.named_parameters())
     out.update(model.named_buffers())
     if fused:
         for name, mod in model.named_modules():
-            if isinstance(mod, Bottleneck) and mod.fusable:
+            if isinstance(mod, FoldCache) and mod.foldable:
                 if mod._folded is None:
                     raise ValueError(f"{name} has no folded weights; call "
                                      "cache_folded_weights() first")
@@ -142,7 +148,7 @@ class _Program(torch.nn.Module):
             else:
                 state[f"model.{key}"] = t
         for name, mod in holder.model.named_modules():
-            if isinstance(mod, Bottleneck):
+            if isinstance(mod, FoldCache):
                 parts = folded.get(name)
                 mod._folded = (None if parts is None else
                                tuple(parts[i] for i in range(len(parts))))

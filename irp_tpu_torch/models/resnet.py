@@ -20,7 +20,10 @@ names follow torchvision (``conv1``, ``bn1``, ``layer{1..4}.{j}.conv{k}``,
 - Frozen identity bottlenecks (j > 0 in a frozen stage) may run through
   the fused kernel (``ops/cuda_resnet.py``), under the JAX package's
   eligibility rule: bottleneck depth, plain width, inference-form BN, bf16
-  compute, default precision.  The parameter tree is the same either way.
+  compute, default precision.  Under the same rule the frozen stages'
+  blocks 0 and the stem run with their BN folded into their convs, each
+  conv followed by one epilogue pass (bias, residual, ReLU, the stem's
+  max-pool).  The parameter tree is the same either way.
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from irp_tpu_torch.models.layers import Conv2d, at_least_f32, flax_init_
+from irp_tpu_torch.models.layers import (Conv2d, at_least_f32, flax_init_,
+                                         nchw, nhwc)
 from irp_tpu_torch.parallel.distributed import all_reduce_sum_autograd
 from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
+                                           frozen_epilogue,
                                            fused_identity_bottleneck)
 from irp_tpu_torch.utils import monitor
 
@@ -191,16 +196,64 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
-class Bottleneck(nn.Module):
+def folded_conv(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype):
+    """(weight, bias): ``bn``'s inference form folded into ``conv`` in f32,
+    the weight in F.conv2d's OIHW layout and the conv weight's memory
+    format, cast to ``dtype``; the bias (C_out,) f32 (f64 stays)."""
+    kernel = conv.weight.detach().permute(2, 3, 1, 0)  # OIHW->HWIO
+    wf, bf = fold_bn_into_conv(kernel, bn.weight.detach(), bn.bias.detach(),
+                               bn.running_mean, bn.running_var, bn.eps)
+    return wf.permute(3, 2, 0, 1).to(dtype), at_least_f32(bf).contiguous()
+
+
+def _nhwc(x):
+    """The NHWC tensor the epilogue takes, from an NCHW map held in
+    channels_last memory (a view)."""
+    return nhwc(x).contiguous()
+
+
+class FoldCache(nn.Module):
+    """A module whose fused forward reads its inference BN folded into its
+    convs (``folded_weights``) where ``foldable``; ``_cache_own_fold``
+    folds once, so the fused forward does not refold per call.  train(),
+    load_state_dict and device or dtype moves drop the cache; an in-place
+    edit of the parameters does not."""
+
+    foldable = False
+    _folded = None
+
+    def folded_weights(self) -> tuple:
+        raise NotImplementedError
+
+    def _cache_own_fold(self) -> None:
+        with torch.no_grad():
+            self._folded = self.folded_weights()
+
+    def train(self, mode: bool = True):
+        self._folded = None
+        return super().train(mode)
+
+    def _apply(self, *args, **kwargs):
+        self._folded = None
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._folded = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+
+class Bottleneck(FoldCache):
     """1x1 -> 3x3(stride) -> 1x1 with expansion 4 (ResNet-50/101/152),
     stride on the 3x3 (v1.5).  ``groups``/``width_per_group``: ResNeXt /
-    Wide-ResNet.  ``fusable`` marks a frozen identity block that may run
-    through the fused kernel when the forward asks for it."""
+    Wide-ResNet.  ``foldable`` marks a block of a frozen stage that may
+    run with its BN folded when the forward asks for it: an identity block
+    (``fusable``) through the fused kernel, a block with a downsample as
+    four folded convs and three epilogue passes."""
 
     expansion = 4
 
     def __init__(self, inplanes, planes, stride, dtype, frozen_bn,
-                 groups=1, width_per_group=64, fusable: bool = False):
+                 groups=1, width_per_group=64, foldable: bool = False):
         super().__init__()
         width = int(planes * width_per_group / 64.0) * groups
         out = planes * self.expansion
@@ -217,12 +270,14 @@ class Bottleneck(nn.Module):
                 Conv2d(inplanes, out, 1, stride, compute_dtype=dtype),
                 BatchNorm2d(out, dtype, frozen_bn))
         self.compute_dtype = dtype
-        self.fusable = fusable
-        self._folded = None  # set by cache_folded_weights()
+        self.foldable = foldable
+        self.fusable = foldable and self.downsample is None
 
     def forward(self, x, fused: bool = False):
         if fused and self.fusable:
             return self._fused(x)
+        if fused and self.foldable:
+            return self._folded_forward(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -230,40 +285,26 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
     def folded_weights(self):
-        """(w1, b1, w2, b2, w3, b3) in the kernel's layout: each inference
-        BN folded into its conv in f32 (HWIO), weights then cast to the
-        compute dtype, biases kept f32."""
-        dt = self.compute_dtype
+        """Each inference BN folded into its conv in f32, weights then cast
+        to the compute dtype, biases kept f32.  An identity block: (w1,
+        b1, w2, b2, w3, b3) in the fused kernel's layout (HWIO, 1x1
+        kernels as (C_in, C_out) matrices).  A block with a downsample:
+        (w1, b1, w2, b2, w3, b3, wd, bd), the weights in F.conv2d's layout
+        (:func:`folded_conv`)."""
+        pairs = ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                 (self.conv3, self.bn3))
+        if self.downsample is not None:
+            pairs += (tuple(self.downsample),)
         out = []
-        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
-                         (self.conv3, self.bn3)):
-            kernel = conv.weight.detach().permute(2, 3, 1, 0)  # OIHW->HWIO
-            wf, bf = fold_bn_into_conv(kernel, bn.weight.detach(),
-                                       bn.bias.detach(), bn.running_mean,
-                                       bn.running_var, bn.eps)
-            if kernel.shape[0] == 1:
-                wf = wf.reshape(wf.shape[2], wf.shape[3])
-            out += [wf.to(dt).contiguous(), bf.float().contiguous()]
+        for conv, bn in pairs:
+            w, b = folded_conv(conv, bn, self.compute_dtype)
+            if self.downsample is None:
+                w = w.permute(2, 3, 1, 0)  # OIHW -> HWIO
+                if w.shape[0] == 1:
+                    w = w.reshape(w.shape[2], w.shape[3])
+                w = w.contiguous()
+            out += [w, b]
         return tuple(out)
-
-    def cache_folded_weights(self) -> None:
-        """Fold once for inference, so the fused forward does not refold
-        per call.  train(), load_state_dict and device or dtype moves drop
-        the cache; an in-place edit of the parameters does not."""
-        with torch.no_grad():
-            self._folded = self.folded_weights()
-
-    def train(self, mode: bool = True):
-        self._folded = None
-        return super().train(mode)
-
-    def _apply(self, *args, **kwargs):
-        self._folded = None
-        return super()._apply(*args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._folded = None
-        super()._load_from_state_dict(*args, **kwargs)
 
     def _fused(self, x):
         # NCHW in channels_last memory is NHWC: the permute is a view
@@ -272,9 +313,23 @@ class Bottleneck(nn.Module):
         y = fused_identity_bottleneck(x_nhwc, *weights)
         return y.permute(0, 3, 1, 2)
 
+    def _folded_forward(self, x):
+        """The block with its BN folded: each conv in bf16 with no bias,
+        then one epilogue pass (``relu(y + b)`` after conv1 and conv2,
+        ``relu(y + r + (b3 + bd))`` at the tail)."""
+        w1, b1, w2, b2, w3, b3, wd, bd = (self._folded
+                                          or self.folded_weights())
+        x = x.to(self.compute_dtype)
+        y = nchw(frozen_epilogue(_nhwc(F.conv2d(x, w1)), b1))
+        y = nchw(frozen_epilogue(_nhwc(F.conv2d(
+            y, w2, None, self.conv2.stride, self.conv2.padding)), b2))
+        r = _nhwc(F.conv2d(x, wd, None, self.downsample[0].stride))
+        return nchw(frozen_epilogue(_nhwc(F.conv2d(y, w3)), b3, r, bd))
 
-class ResNet(nn.Module):
-    """Headless ResNet returning globally pooled features (B, C)."""
+
+class ResNet(FoldCache):
+    """Headless ResNet returning globally pooled features (B, C).  Its own
+    fold (``foldable``, ``folded_weights``) is the stem's."""
 
     def __init__(self, depth: int = 50, groups: int = 1,
                  width_per_group: int = 64, dtype=torch.bfloat16,
@@ -310,6 +365,7 @@ class ResNet(nn.Module):
                          and bn_stats_mode == "trainable_only"
                          and dtype == torch.bfloat16
                          and precision == "default")
+        self.foldable = fusable_stage and frozen_prefix > 0
         inplanes = 64
         for i, num_blocks in enumerate(STAGE_SIZES[depth]):
             frozen = (i + 1) <= frozen_prefix
@@ -319,8 +375,7 @@ class ResNet(nn.Module):
                 stride = 2 if (i > 0 and j == 0) else 1
                 kwargs = {}
                 if block_cls is Bottleneck:
-                    # j > 0 <=> identity block
-                    kwargs["fusable"] = fusable_stage and frozen and j > 0
+                    kwargs["foldable"] = fusable_stage and frozen
                 blocks.append(block_cls(inplanes, planes, stride, dtype,
                                         frozen_bn(frozen), groups,
                                         width_per_group, **kwargs))
@@ -334,19 +389,26 @@ class ResNet(nn.Module):
         flax_init_(self, generator)
 
     def fuse_active(self, x: torch.Tensor) -> bool:
-        """Whether this forward routes fusable blocks through the kernel:
-        always for 'on', on CUDA inputs for 'auto'."""
+        """Whether this forward routes fusable blocks through the kernel
+        and runs the stem and the other foldable blocks folded: always for
+        'on', on CUDA inputs for 'auto'."""
         mode = self.fused_frozen_blocks
         return mode == "on" or (mode == "auto" and x.is_cuda)
 
+    def folded_weights(self):
+        """The stem's (weight, bias): ``bn1`` folded into ``conv1``
+        (:func:`folded_conv`)."""
+        return folded_conv(self.conv1, self.bn1, self.compute_dtype)
+
     def cache_folded_weights(self) -> None:
-        """Fold the fusable blocks' BN once (Bottleneck.cache_folded_weights);
-        for a model kept in eval form."""
+        """Fold the BN of the stem and of every foldable block once
+        (:meth:`FoldCache._cache_own_fold`); for a model kept in eval
+        form, or whose BN the mode keeps in inference form."""
         if self.fused_frozen_blocks == "off":
             return
         for mod in self.modules():
-            if isinstance(mod, Bottleneck) and mod.fusable:
-                mod.cache_folded_weights()
+            if isinstance(mod, FoldCache) and mod.foldable:
+                mod._cache_own_fold()
 
     def forward(self, x):
         return self.forward_trainable(self.forward_frozen(x))
@@ -354,24 +416,37 @@ class ResNet(nn.Module):
     def forward_frozen(self, x):
         """The stem and the first ``frozen_prefix`` stages: the stages run
         without autograd, and the stem too when the prefix is not empty.
-        Only these stages hold fusable blocks.  In train mode it is the
-        span ``train.forward.frozen``, which counts K1's launches."""
+        Only these stages hold foldable blocks.  In train mode it is the
+        span ``train.forward.frozen``, which counts K1's and the
+        epilogue's launches (on the card; 0 on the CPU)."""
         fused = self.fuse_active(x)
         grad = torch.is_grad_enabled()
         span = (monitor.span("train.forward.frozen") if self.training
                 else monitor.NO_SPAN)
         with span:
             launches = fused_identity_bottleneck.launches
+            epilogues = frozen_epilogue.launches
             with torch.set_grad_enabled(grad and self.frozen_prefix == 0):
-                x = self.maxpool(F.relu(self.bn1(self.conv1(
-                    x.to(self.compute_dtype)))))
+                x = self.stem(x, fused)
             with torch.set_grad_enabled(False):
                 for name in STAGE_NAMES[:self.frozen_prefix]:
                     for block in getattr(self, name):
                         x = block(x, fused)
             span.count("k1_launches",
                        fused_identity_bottleneck.launches - launches)
+            span.count("epilogue_launches",
+                       frozen_epilogue.launches - epilogues)
         return x
+
+    def stem(self, x, fused: bool = False):
+        """conv1, bn1, ReLU and the max-pool; with ``fused`` and a
+        foldable stem, the folded conv and one epilogue pass."""
+        x = x.to(self.compute_dtype)
+        if fused and self.foldable:
+            w, b = self._folded or self.folded_weights()
+            y = F.conv2d(x, w, None, self.conv1.stride, self.conv1.padding)
+            return nchw(frozen_epilogue(_nhwc(y), b, pool=True))
+        return self.maxpool(F.relu(self.bn1(self.conv1(x))))
 
     def forward_trainable(self, x):
         """The stages after the frozen prefix and the global pool:

@@ -83,7 +83,7 @@ def random_identity_block(c: int, m: int, gen: torch.Generator):
     from irp_tpu_torch.models.layers import lecun_normal_
     from irp_tpu_torch.models.resnet import Bottleneck
 
-    block = Bottleneck(c, m, 1, torch.bfloat16, True, fusable=True)
+    block = Bottleneck(c, m, 1, torch.bfloat16, True, foldable=True)
     with torch.no_grad():
         for conv in (block.conv1, block.conv2, block.conv3):
             lecun_normal_(conv.weight, conv.weight[0].numel(), gen)

@@ -50,10 +50,11 @@ def _result(logits: np.ndarray, labels: np.ndarray,
 
 
 def set_mode(model, training: bool) -> None:
-    """Train or eval mode, then, for a ResNet, the frozen identity blocks'
-    BN folded once for the fused kernel (``ResNet.cache_folded_weights``):
-    a mode switch drops that cache, and the frozen weights do not change
-    until the next load.  The other families have no fused blocks."""
+    """Train or eval mode, then, for a ResNet, the frozen prefix's BN
+    folded once for its fused forward (``ResNet.cache_folded_weights``:
+    the identity blocks' for K1, the stem's and the blocks 0's): a mode
+    switch drops that cache, and the frozen weights do not change until
+    the next load.  The other families have no fused blocks."""
     model.train(training)
     cache = getattr(model.backbone, "cache_folded_weights", None)
     if cache is not None:

@@ -168,11 +168,12 @@ def test_center_crop_and_overlay_bytes_equal_jax():
 
 
 class _Counter(torch.utils._python_dispatch.TorchDispatchMode):
-    """Counts the calls of the port's two ops under it."""
+    """Counts the calls of the port's ops under it."""
 
     def __init__(self):
         super().__init__()
-        self.calls = {"identity_bottleneck": 0, "eval_preprocess": 0}
+        self.calls = {"identity_bottleneck": 0, "eval_preprocess": 0,
+                      "frozen_epilogue": 0}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.name()
@@ -183,8 +184,9 @@ class _Counter(torch.utils._python_dispatch.TorchDispatchMode):
 
 def test_depth50_gradcam_runs_k1_and_k2_ops():
     """K1 'on' at depth 50 (64 crop, bf16): each batch of the live
-    Grad-CAM calls the K1 op 10 times and the K2 op once, and its logits
-    are the predictor's own."""
+    Grad-CAM calls the K1 op 10 times, the frozen prefix's epilogue op 10
+    times (the stem, 3 in each block 0) and the K2 op once, and its
+    logits are the predictor's own."""
     cfg = ModelConfig(depth=50, num_classes=3, image_size=64, hidden_dim=16,
                       fused_frozen_blocks="on")
     model = init_classifier(cfg, torch.Generator().manual_seed(0),
@@ -195,7 +197,8 @@ def test_depth50_gradcam_runs_k1_and_k2_ops():
     counter = _Counter()
     with counter:
         cams, logits = explain.GradCAM(pred).explain(images)
-    assert counter.calls == {"identity_bottleneck": 20, "eval_preprocess": 2}
+    assert counter.calls == {"identity_bottleneck": 20, "eval_preprocess": 2,
+                             "frozen_epilogue": 20}
     assert cams.shape == (3, 64, 64) and np.isfinite(cams).all()
     probs = pred.predict_probs(images)
     np.testing.assert_array_equal(

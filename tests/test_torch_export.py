@@ -1,9 +1,10 @@
 """The port's ``.irpx`` (irp_tpu_torch/export.py), the K1 and K2 custom
 ops it holds, and predict_cli's ``--export*`` flags, on the CPU.
 
-- ``torch.library.opcheck`` on both ops.
-- A depth-50 export with K1 'on' holds exactly 10 K1 nodes and 1 K2 node
-  in its forward and in its explain program.
+- ``torch.library.opcheck`` on the ops (K1, K2 and the frozen prefix's
+  epilogue).
+- A depth-50 export with K1 'on' holds exactly 10 K1 nodes, 10 epilogue
+  nodes and 1 K2 node in its forward and in its explain program.
 - An artifact of ResNet18 at a 64 crop, float32, loads through
   ``load_predictor`` and scores bit-equal to the live predictor at every
   rung of its ladder; its baked explain program equals the live
@@ -87,6 +88,14 @@ def test_opcheck_both_ops(dtype):
             for i, t in enumerate(args)]
     torch.library.opcheck(torch.ops.irp_tpu_torch.identity_bottleneck.default,
                           tuple(args))
+    y, r = (torch.from_numpy(rng.normal(size=(2, 7, 5, 16)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    b, b_r = (torch.from_numpy(rng.normal(size=16).astype(np.float32))
+              for _ in range(2))
+    for args in ((y, b, None, None, False), (y, b, r, b_r, False),
+                 (y, b, None, None, True)):
+        torch.library.opcheck(torch.ops.irp_tpu_torch.frozen_epilogue.default,
+                              args)
 
 
 def _ops(blob: bytes) -> collections.Counter:
@@ -108,6 +117,7 @@ def test_depth50_fused_export_holds_the_ops(tmp_path):
         for member in ("program.pt2", "explain.pt2"):
             ops = _ops(zf.read(member))
             assert ops["irp_tpu_torch.identity_bottleneck.default"] == 10
+            assert ops["irp_tpu_torch.frozen_epilogue.default"] == 10
             assert ops["irp_tpu_torch.eval_preprocess.default"] == 1
             assert ops["aten._assert_tensor_metadata.default"] == 0
     loaded = infer.load_predictor(path, device="cpu")

@@ -128,13 +128,18 @@ def test_fused_and_unfused_share_the_state_dict(fused_pair):
 
 def test_cached_folded_weights_match_and_are_dropped(fused_pair):
     """cache_folded_weights() gives the same fused logits as folding per
-    call; train() and load_state_dict drop the cache."""
+    call; train() and load_state_dict drop the cache.  It holds the folds
+    of the 10 identity blocks (K1's), of the 3 blocks 0 and of the stem
+    (the backbone's own)."""
     cfg, variables, x, _ = fused_pair
     model = _torch_model(cfg, variables)
-    blocks = [m for m in model.modules() if getattr(m, "fusable", False)]
+    blocks = [m for m in model.modules() if getattr(m, "foldable", False)]
+    assert len(blocks) == 14 and blocks[0] is model.backbone
     per_call = _torch_logits(model, x)
     model.backbone.cache_folded_weights()
     assert all(b._folded is not None for b in blocks)
+    assert [len(b._folded) for b in blocks
+            if not getattr(b, "fusable", False)] == [2, 8, 8, 8]
     np.testing.assert_array_equal(_torch_logits(model, x), per_call)
     model.train()
     assert all(b._folded is None for b in blocks)

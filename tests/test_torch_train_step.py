@@ -47,6 +47,7 @@ from irp_tpu_torch.data.pipeline import (CachedDataset, EpochSampler,
                                          HBMDataset)
 from irp_tpu_torch.models.classifier import init_classifier
 from irp_tpu_torch.models.convert import flax_param_name
+from irp_tpu_torch.models.resnet import FoldCache
 from irp_tpu_torch.train.loop import set_mode
 from irp_tpu_torch.train.state import create_train_state
 from irp_tpu_torch.train.step import (StepConfig, augment_mix,
@@ -234,8 +235,15 @@ def test_accumulated_step_matches_jax():
             blk[field]).max()
 
 
-def _port_grads(cfg, variables, images, labels, draws):
+def _port_grads(cfg, variables, images, labels, draws, fold=True):
+    """One step's loss and gradients.  ``fold=False`` keeps the stem and
+    the blocks 0 unfolded (K1 alone on the frozen prefix: the JAX
+    package's own structure there)."""
     model = torch_model(cfg, variables)
+    if not fold:
+        for m in model.backbone.modules():
+            if isinstance(m, FoldCache) and not getattr(m, "fusable", False):
+                m.foldable = False
     set_mode(model, True)
     scfg = _step_cfg(cfg)
     x, y, _, _ = augment_mix(torch.from_numpy(images),
@@ -253,9 +261,16 @@ def test_bf16_fused_step_matches_jax_interpret_kernel():
     packages (train-mode BN over 16 values a channel amplifies the
     rounding), so the port is held to that reference: its gradients no
     farther from the f32 step than 1.25x the JAX package's bf16 fused
-    gradients are, plus 0.05; the loss within 2e-2 of the JAX bf16 loss.
-    The f32 step is the port's, which test_one_f32_step_matches_jax holds
-    to the JAX package's within 1e-4."""
+    gradients are, plus 0.05.  The loss: with the stem and the blocks 0
+    unfolded, as the JAX package runs them, within 2e-2 of the JAX bf16
+    loss.  The port's main path also folds those BNs and so rounds at
+    other points; over perturbed_variables seeds 0-11 its bf16 loss sits
+    up to 3.15% from the JAX package's (median 1.53%; the unfolded path
+    1.74%) and up to 3.92% from the f32 step's (the unfolded path 3.54%,
+    the JAX package's 2.38%): it is held within 4e-2 of the JAX bf16
+    loss and within 5e-2 of the f32 loss.  The f32 step is the port's,
+    which test_one_f32_step_matches_jax holds to the JAX package's within
+    1e-4."""
     cfg = JaxModelConfig(depth=50, num_classes=3, image_size=56,
                          compute_dtype="bfloat16", dropout_rate=0.0,
                          fused_frozen_blocks="on")
@@ -283,11 +298,15 @@ def test_bf16_fused_step_matches_jax_interpret_kernel():
     cuda_resnet.reference_identity_bottleneck = counting
     try:
         loss, grads = _port_grads(cfg, variables, images, labels, draws)
+        unfolded, _ = _port_grads(cfg, variables, images, labels, draws,
+                                  fold=False)
     finally:
         cuda_resnet.reference_identity_bottleneck = plain
-    assert len(calls) == 10  # the 10 frozen identity blocks, fused
-    _, ref = _port_grads(f32, variables, images, labels, draws)
-    assert abs(loss - jax_loss) <= 2e-2 * abs(jax_loss)
+    assert len(calls) == 20  # the 10 frozen identity blocks, fused, twice
+    ref_loss, ref = _port_grads(f32, variables, images, labels, draws)
+    assert abs(unfolded - jax_loss) <= 2e-2 * abs(jax_loss)
+    assert abs(loss - jax_loss) <= 4e-2 * abs(jax_loss)
+    assert abs(loss - ref_loss) <= 5e-2 * abs(ref_loss)
     names = sorted(grads)
     flat = {k: np.concatenate([g[n] for n in names]) for k, g in
             (("port", grads), ("jax", jax_grads), ("f32", ref))}
@@ -432,7 +451,7 @@ def test_train_step_spans_and_tracing_changes_nothing(family):
     assert tree == SPAN_TREE * 2
     frozen = [r["counts"] for r in records
               if r["name"] == "train.forward.frozen"]
-    # K1 counts its launches on the card alone
-    assert frozen == ([{"k1_launches": 0}] * 2 if family == "resnet"
-                      else [{}] * 2)
+    # K1 counts its launches on the card alone; a ResNet18 folds nothing
+    assert frozen == ([{"k1_launches": 0, "epilogue_launches": 0}] * 2
+                      if family == "resnet" else [{}] * 2)
     assert all(r["device_ms"] >= 0 for r in records)  # host clock here
