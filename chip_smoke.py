@@ -56,8 +56,21 @@ Phases, each printing one JSON line:
               pass, each frozen block 0's conv1, conv2 and tail) at B=32
               and 256, bit for bit, one launch a call, beside its bytes
               bound and the parent's unfused sequence there (inference
-              BN with its casts, ReLU, add, max-pool: parent_ms).  With
-              --parent DIR (a checkout
+              BN with its casts, ReLU, add, max-pool: parent_ms);
+              batch_norm_train at the 10 train-mode BatchNorms of
+              ResNet50/224's layer4 (BN_SITES) at B=32 and 256: the
+              normalisation bit for bit against the plain formula given
+              the same moments, the moments within 1e-5 of E|x| and
+              E[x^2], the running buffers bit for bit against the plain
+              update (untouched when held), dx, dweight and dbias within
+              twice the plain backward's f32 error of its f64, one
+              forward and one backward launch a call, device ms forward
+              and backward beside the bytes bound (x read and y written;
+              dy and x read and dx written; the two-pass design's, x
+              read twice and dy and x read twice, as bound_ms_two_pass),
+              the plain versions' time and the parent's
+              (the formula as PyTorch ops with autograd's backward:
+              parent_ms).  With --parent DIR (a checkout
               of the parent commit), K2 and the parent's K3 path (its
               distance tile kernel, the self mask and torch.topk) are
               built from DIR and timed in turns with this tree's (parent,
@@ -69,7 +82,8 @@ Phases, each printing one JSON line:
               response must be 200 with probabilities summing to 1 and
               agree with an unfused predictor on the card, the launch
               counters must show the kernels on that path (K2 once a
-              batch, K1 and the frozen epilogue 10 times), and a float32
+              batch, K1 and the frozen epilogue 10 times, the train-mode
+              BatchNorm op never), and a float32
               CPU forward must agree on a small input; a predictor loaded
               with no fused flag (the serving default, 'off') must launch
               K1 0 times.  Prints images/s of predict_probs at batch 64
@@ -148,7 +162,9 @@ Phases, each printing one JSON line:
               class-pattern images, eval on 512 each epoch.  Gates: finite
               losses and epoch 2's mean loss below epoch 1's; K1 and the
               frozen epilogue launched 10 times per train and eval
-              forward, K2 once per eval batch; one step at random init
+              forward, the train-mode BatchNorm op 10 times per train
+              forward (layer4's), K2 once per eval batch; one step at
+              random init
               and one from the fit's weights, the same draws, with K1
               and the folded prefix against cuDNN within twice a bf16
               step's measured drift from the f32 step (K1_STEP_TOL; from
@@ -163,7 +179,9 @@ Phases, each printing one JSON line:
               family: (a) fit, 2 epochs of 16 steps at batch 32 on 1,024
               class-pattern images, eval on 256 each epoch; gates: finite
               losses, epoch 2's mean loss below epoch 1's, K2 once per
-              eval batch and K1 never, every frozen parameter bit-equal
+              eval batch and K1 never, the train-mode BatchNorm op
+              FT_BN_PER_FORWARD times per train forward (EfficientNet-B0's
+              4, ViT's and ConvNeXt's 0), every frozen parameter bit-equal
               to its init and every trainable one changed, EfficientNet's
               frozen stages' BN statistics bit-equal; (b) one step at
               batch 8 on given augmentation, stochastic-depth and dropout
@@ -183,7 +201,8 @@ Phases, each printing one JSON line:
               its 1,024 test JPEGs: the trial COMPLETE, the five
               artifacts, the .npz loaded as EfficientNet-B0, >= 99.5% of
               predict_cli's labels equal to the test evaluation's, K2 once
-              per eval batch and K1 never in each; (f) a ViT-B/16 .pth
+              per eval batch and K1 never in each, the BatchNorm op 4 per
+              train forward (0 in predict_cli); (f) a ViT-B/16 .pth
               (export_torch_pth) through fit's pretrained_path: eval
               logits bit-equal to the source model's before any step.
 11. hyperopt — the k-fold sweep, ResNet50/224 bf16, 10 classes: (a) 12
@@ -200,7 +219,8 @@ Phases, each printing one JSON line:
               existing study with 3 previous trials"; all 4 trials
               COMPLETE, each value finite; recommended_epochs in each
               complete run's tracking params; K2 once per eval batch
-              and K1 10 per forward in (b), 0 in (a); one pool upload
+              and K1 10 per forward in (b), 0 in (a); the train-mode
+              BatchNorm op 10 per train forward in both; one pool upload
               per run (upload_bytes = N x 196,608 + 4 N) and no per-fit
               upload; each fold's prefix labels equal to
               subset_by_shards's as a multiset.  Prints
@@ -222,7 +242,9 @@ Phases, each printing one JSON line:
               >= 90% and the report's equal to it, the confusion matrix's
               sum, the five artifacts (PNGs open); K2 once per test batch
               and K1 0 in (a); one epoch and K1 10 per train and eval
-              forward in (b), test accuracy >= 90%; in (c) >= 99.5% of
+              forward in (b), test accuracy >= 90%; the train-mode
+              BatchNorm op 10 per train forward in (a) and (b), 0 in (c);
+              in (c) >= 99.5% of
               labels equal to (a)'s evaluation, accuracy within 0.5
               points, K2 4 and K1 40, and the .pth and .npz predictors'
               probabilities bit-equal on one batch.  Prints the fit's
@@ -322,8 +344,8 @@ Phases, each printing one JSON line:
 
 Then the card's nvidia-smi line, one JSON object with every kernel's
 numbers (launches summed over the paths that ran it; K1's and K4's
-B=256 times from the bench phase under "b256", the epilogue's from the
-kernels phase), and last {"ok":
+B=256 times from the bench phase under "b256", the epilogue's and the
+train-mode BatchNorm's from the kernels phase), and last {"ok":
 true, "device": {...}}.  Exits non-zero, with no result, when there is no
 CUDA device or any phase fails.
 """
@@ -381,6 +403,14 @@ EPILOGUE_SITES = (("stem", 112, 112, 64, "pool"),) + tuple(
                               ("conv2", hw // s, m, "relu"),
                               ("tail", hw // s, 4 * m, "tail")))
 EPILOGUE_BATCHES = (32, 256)
+# (site, C, H, W): the train-mode BatchNorm's 10 maps in ResNet50/224's
+# layer4 (block 0's bn1 before the stride, then 7x7), timed at the smoke's
+# B=32 and the benchmark cell's B=256
+BN_SITES = (("layer4.0.bn1", 512, 14, 14), ("layer4.0.bn2", 512, 7, 7),
+            ("layer4.0.bn3", 2048, 7, 7),
+            ("layer4.0.downsample.1", 2048, 7, 7)) + tuple(
+    (f"layer4.{j}.bn{k}", 2048 if k == 3 else 512, 7, 7)
+    for j in (1, 2) for k in (1, 2, 3))
 # (B, H, W, C, M): the edges of K1's tiling, held to K1_TOL in the kernels
 # phase: a whole image in one unit (8x8, 4x4, 7x7), fewer pixels than a
 # tile (3x3), ragged last bands (13 = 8 + 5, 17 = 6 + 6 + 5), M=512
@@ -897,6 +927,190 @@ def _epilogue_entry(seed: int) -> dict:
             "b256": {key: forwards[256][key] for key in keys}}
 
 
+def _rel_err(got, want) -> float:
+    """Norm of ``got - want`` over the norm of ``want``, in f64."""
+    want = want.double()
+    return float((got.double() - want).norm()
+                 / want.norm().clamp_min(1e-300))
+
+
+def _bn_case(gen, site, c, h, w, b) -> dict:
+    """The train-mode BatchNorm op at one site at batch ``b``, each of its
+    four kernels against its plain version on the same card tensors (the
+    bars of ``tests/test_torch_train_card.py``): ``bn_fw_stats``'s
+    moments within 1e-5 of E|x| and of E[x^2] per channel, the running
+    buffers it moves bit-equal to the plain update from its moments and
+    untouched when held; ``bn_fw_normalize`` bit for bit given the plain
+    moments; ``bn_bw_reduce`` and ``bn_bw_dx``'s dx, dweight and dbias no
+    farther from the plain backward in f64 (same dy, x and moments) than
+    twice the plain backward's own f32 error; and the op's forward and
+    backward launches counted from 0.  Device times (:func:`gpu_ms`, cold
+    L2) of the kernels forward (moments and normalisation) and backward
+    (sums and dx), of the plain versions, and of the parent's formula as
+    PyTorch ops (forward with autograd's graph, then its backward); the
+    bound from the bytes the function moves (x read and y written; dy and
+    x read and dx written), and the two-pass design's (x read twice; dy
+    and x read twice)."""
+    from irp_tpu_torch.models.layers import at_least_f32
+    from irp_tpu_torch.ops import cuda_batch_norm as bn
+
+    eps, momentum = 1e-5, 0.1
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def bf16(t):
+        return t.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    numel = b * c * h * w
+    sets = [(bf16(rand(b, c, h, w) * 1.5 + 0.3), bf16(rand(b, c, h, w)))
+            for _ in range(n_sets(numel * 4))]
+    weight = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = rand(c)
+    running = (rand(c), torch.rand(c, generator=gen, device="cuda") + 0.5)
+    x, dy = sets[0]
+    xf = x.float()
+    _, plain = bn.batch_norm_train_plain(x, weight, bias, eps)
+
+    moved = [t.clone() for t in running]
+    moments = bn._stats_cuda(x, *moved, momentum, True)
+    held = [t.clone() for t in running]
+    bn._stats_cuda(x, *held, momentum, False)
+    want_running = [t.clone() for t in running]
+    bn.update_running_stats(*want_running, moments[0], moments[1], momentum)
+    dims = (0, 2, 3)
+    mean_err = float(((moments[0] - plain[0]).abs()
+                      / xf.abs().mean(dims)).max())
+    var_err = float(((moments[1] - plain[1]).abs()
+                     / (xf * xf).mean(dims)).max())
+    running_bit_equal = all(torch.equal(g, r)
+                            for g, r in zip(moved, want_running))
+    held_untouched = all(torch.equal(g, r) for g, r in zip(held, running))
+
+    got = bn._normalize_cuda(x, plain, weight, bias, eps)
+    want = bn.normalize_plain(xf, plain[0], plain[1], weight, bias,
+                              eps).to(torch.bfloat16)
+    bit_equal = bool(torch.equal(got.view(torch.int16),
+                                 want.view(torch.int16)))
+    max_abs_err = float((got.float() - want.float()).abs().max())
+
+    grads = bn._backward_cuda(dy, x, moments, weight, eps, True)
+    f32 = bn.batch_norm_train_backward_plain(dy, x, moments, weight, eps)
+    f64 = bn.batch_norm_train_backward_plain(
+        dy, x.double(), moments.double(), weight.double(), eps)
+    grad_err = {name: {"rel_err": _rel_err(g, r), "plain_rel_err":
+                       _rel_err(p, r)}
+                for name, g, p, r in zip(("dx", "dweight", "dbias"), grads,
+                                         f32, f64)}
+    grads_ok = all(e["rel_err"] <= 2 * e["plain_rel_err"]
+                   for e in grad_err.values())
+    del grads, f32, f64
+
+    bn.batch_norm_train.launches = bn.batch_norm_train.backward_launches = 0
+    xi = x.detach().requires_grad_(True)
+    bn.batch_norm_train(xi, weight, bias, *running, momentum,
+                        eps).backward(dy)
+    torch.cuda.synchronize()
+    launches = (bn.batch_norm_train.launches,
+                bn.batch_norm_train.backward_launches)
+    saved = [bn._forward_cuda(x, weight, bias, *running, momentum, eps, True)
+             for x, _ in sets]
+
+    def parent(x):
+        xf = at_least_f32(x.detach().requires_grad_(True))
+        mean, ex2 = bn.batch_moments(xf)
+        var_raw = ex2 - mean * mean
+        bn.update_running_stats(*running, mean, var_raw, momentum)
+        return bn.normalize_plain(
+            xf, mean, var_raw, weight.detach().requires_grad_(True),
+            bias.detach().requires_grad_(True), eps).to(torch.bfloat16)
+
+    # bytes the function moves (each tensor once) and the two-pass design
+    fw_bytes, bw_bytes = 2 * numel * 2 + 8 * c * 4, 3 * numel * 2 + 8 * c * 4
+    fw_two, bw_two = 3 * numel * 2 + 8 * c * 4, 5 * numel * 2 + 8 * c * 4
+    ms_fw = gpu_ms([lambda x=x: bn._forward_cuda(
+        x, weight, bias, *running, momentum, eps, True) for x, _ in sets])
+    ms_bw = gpu_ms([lambda dy=dy, s=s: bn._backward_cuda(
+        dy, s[0], s[2], weight, eps, True) for (_, dy), s in zip(sets, saved)])
+    plain_fw = gpu_ms([lambda x=x: bn.batch_norm_train_plain(
+        x, weight, bias, eps) for x, _ in sets])
+    plain_bw = gpu_ms([
+        lambda x=x, dy=dy, s=s: bn.batch_norm_train_backward_plain(
+            dy, x, s[2], weight, eps) for (x, dy), s in zip(sets, saved)])
+    parent_fw = gpu_ms([lambda x=x: parent(x) for x, _ in sets])
+    parent_fb = gpu_ms([lambda x=x, dy=dy: parent(x).backward(dy)
+                        for x, dy in sets])
+    bound_ms, bound_by = bound(fw_bytes + bw_bytes, 0)
+    return {
+        "site": site, "shape": f"({b},{c},{h},{w}) bf16 channels_last",
+        "bit_equal": bit_equal, "max_abs_err": max_abs_err,
+        "mean_err_over_mean_abs_x": mean_err,
+        "var_err_over_mean_x2": var_err,
+        "running_bit_equal": running_bit_equal,
+        "held_untouched": held_untouched, "grads": grad_err,
+        "launches": launches[0], "backward_launches": launches[1],
+        "bytes": fw_bytes + bw_bytes, "bytes_two_pass": fw_two + bw_two,
+        "ms": ms_fw + ms_bw, "ms_forward": ms_fw, "ms_backward": ms_bw,
+        "plain_ms": plain_fw + plain_bw, "parent_ms": parent_fb,
+        "parent_ms_forward": parent_fw,
+        "bound_ms": bound_ms, "bound_ms_forward": bound(fw_bytes, 0)[0],
+        "bound_ms_backward": bound(bw_bytes, 0)[0],
+        "bound_ms_two_pass": bound(fw_two + bw_two, 0)[0],
+        "bound_by": bound_by,
+        "ok": (bit_equal and mean_err <= 1e-5 and var_err <= 1e-5
+               and running_bit_equal and held_untouched and grads_ok
+               and launches == (1, 1))}
+
+
+def _bn_entry(seed: int) -> dict:
+    """The train-mode BatchNorm's kernel entry: its 10 sites of one
+    ResNet50 layer4 (BN_SITES) at each of EPILOGUE_BATCHES, each site's
+    times, bytes and launches summed per forward and backward; the entry's
+    own figures are the smoke's batch, ``b256`` the benchmark cell's."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    keys = ("ms", "ms_forward", "ms_backward", "plain_ms", "parent_ms",
+            "parent_ms_forward", "bound_ms", "bound_ms_forward",
+            "bound_ms_backward", "bound_ms_two_pass", "bytes",
+            "bytes_two_pass", "launches", "backward_launches")
+    steps = {}
+    for b in EPILOGUE_BATCHES:
+        cases = [_bn_case(gen, *site, b) for site in BN_SITES]
+        for cs in cases:
+            emit({"phase": "kernels", "kernel": "batch_norm_train",
+                  "case": cs})
+        steps[b] = {"cases": cases, **{
+            key: sum(cs[key] for cs in cases) for key in keys}}
+    smoke = steps[EPILOGUE_BATCHES[0]]
+    every = [cs for f in steps.values() for cs in f["cases"]]
+    return {"name": "batch_norm_train", "route": "cuda",
+            "source": "irp_tpu_torch/csrc/bn_train.cu", "replaces": None,
+            "note": "the port's own: the JAX package has no kernel here "
+                    "(XLA fuses and differentiates this BN); parent_ms is "
+                    "the port's formula as PyTorch ops, forward and "
+                    "autograd's backward, at the same sites",
+            "shape": "the 10 train-mode BNs of one ResNet50/224 layer4 at "
+                     f"B={EPILOGUE_BATCHES[0]}, forward and backward",
+            "tolerance": "normalisation bit for bit given the moments; "
+                         "moments within 1e-5 of E|x| and E[x^2]; running "
+                         "buffers bit for bit; dx, dweight, dbias within "
+                         "twice the plain backward's f32 error of f64",
+            "ok": all(cs["ok"] for cs in every),
+            "max_abs_err": max(cs["max_abs_err"] for cs in every),
+            "max_mean_err_over_mean_abs_x": max(
+                cs["mean_err_over_mean_abs_x"] for cs in every),
+            "max_var_err_over_mean_x2": max(
+                cs["var_err_over_mean_x2"] for cs in every),
+            "max_grad_err_over_plain": {
+                name: max(cs["grads"][name]["rel_err"]
+                          / max(cs["grads"][name]["plain_rel_err"], 1e-300)
+                          for cs in every)
+                for name in ("dx", "dweight", "dbias")},
+            "cases": smoke["cases"], "bound_by": "bytes",
+            "library_ms": None, **{key: smoke[key] for key in keys},
+            "b256": {key: steps[256][key] for key in keys}}
+
+
 def _per_forward(cases, keys) -> dict:
     """Sum of the cases' times weighted by blocks per ResNet50 forward."""
     out = {key: sum(cs[key] * cs["per_forward"] for cs in cases)
@@ -1012,8 +1226,9 @@ def phase_kernels(out: dict, seed: int, parent=None) -> None:
               "bound_by") if key in k3_cases[0]},
           "parent_path_ms": k3_cases[0].get("parent_path_ms")}
     e = _epilogue_entry(seed)
-    kernels = (k2, k1, k3, k4, e)
-    for k in (k1, k3, k4, e):
+    bnt = _bn_entry(seed)
+    kernels = (k2, k1, k3, k4, e, bnt)
+    for k in (k1, k3, k4, e, bnt):
         emit({"phase": "kernels", "kernel": {
             key: v for key, v in k.items()
             if key not in ("cases", "edge_cases")}})
@@ -1235,12 +1450,11 @@ def phase_serve(out: dict, seed: int) -> None:
         == 10 * batches,
         "epilogue_ten_per_forward": launches["frozen_epilogue"]
         == 10 * batches,
+        "bn_train_never_in_serving": launches["batch_norm_train"] == 0,
         "card_f32_vs_cpu_f32_le_1e-3": cpu_diff <= 1e-3,
         "no_flag_load_predictor_k1_zero": (
             default.model.config.fused_frozen_blocks == "off"
-            and default_launches == {"eval_preprocess": 1,
-                                     "identity_bottleneck": 0,
-                                     "frozen_epilogue": 0}),
+            and default_launches == _launches(1, 0)),
     }
     rng = np.random.default_rng(seed + 1)
     ips = {}
@@ -1279,16 +1493,28 @@ N_EXPLAIN_CLIENTS, N_EXPLAINS = 4, 16  # explain clients x requests each
 
 
 def _launch_counts() -> dict:
+    from irp_tpu_torch.ops.cuda_batch_norm import batch_norm_train
     from irp_tpu_torch.ops.cuda_image import eval_preprocess
     from irp_tpu_torch.ops.cuda_resnet import (frozen_epilogue,
                                                fused_identity_bottleneck)
 
     return {"eval_preprocess": eval_preprocess.launches,
             "identity_bottleneck": fused_identity_bottleneck.launches,
-            "frozen_epilogue": frozen_epilogue.launches}
+            "frozen_epilogue": frozen_epilogue.launches,
+            "batch_norm_train": batch_norm_train.launches}
+
+
+def _launches(eval_preprocess: int, k1: int, epilogue=None,
+              bn_train: int = 0) -> dict:
+    """A :func:`_launch_counts` dict: K2's, K1's, the epilogue's (K1's
+    when not given) and the train-mode BatchNorm op's forwards."""
+    return {"eval_preprocess": eval_preprocess, "identity_bottleneck": k1,
+            "frozen_epilogue": k1 if epilogue is None else epilogue,
+            "batch_norm_train": bn_train}
 
 
 def _zero_launch_counts() -> None:
+    from irp_tpu_torch.ops.cuda_batch_norm import batch_norm_train
     from irp_tpu_torch.ops.cuda_image import eval_preprocess
     from irp_tpu_torch.ops.cuda_resnet import (frozen_epilogue,
                                                fused_identity_bottleneck)
@@ -1296,6 +1522,8 @@ def _zero_launch_counts() -> None:
     eval_preprocess.launches = 0
     fused_identity_bottleneck.launches = 0
     frozen_epilogue.launches = 0
+    batch_norm_train.launches = 0
+    batch_norm_train.backward_launches = 0
 
 
 def _prob_rows(rows) -> np.ndarray:
@@ -1369,9 +1597,8 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
     cams, logits = gc.explain(eight)
     torch.cuda.synchronize()
     gc_launches = _launch_counts()
-    checks["gradcam_k2_once_k1_ten_per_batch"] = gc_launches == {
-        "eval_preprocess": 1, "identity_bottleneck": 10,
-        "frozen_epilogue": 10}
+    checks["gradcam_k2_once_k1_ten_per_batch"] = gc_launches == _launches(
+        1, 10)
     f32 = load_predictor(npz, batch_size=64, cfg=_f32(cfg))
     unfused = load_predictor(npz, batch_size=64, fused_frozen_blocks="off")
     cams32, logits32 = GradCAM(f32, batch_size=EXPLAIN_BATCH).explain(eight)
@@ -1451,12 +1678,8 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
     checks.update({
         "export_resolves_auto_to_on": meta["fused_frozen_blocks"] == "on",
         "irpx_probs_bit_equal_64_256": all(equal.values()),
-        "irpx_forward_k2_once_k1_ten": art_launches == {
-            "eval_preprocess": 1, "identity_bottleneck": 10,
-            "frozen_epilogue": 10},
-        "irpx_explain_k2_once_k1_ten": baked_launches == {
-            "eval_preprocess": 1, "identity_bottleneck": 10,
-            "frozen_epilogue": 10},
+        "irpx_forward_k2_once_k1_ten": art_launches == _launches(1, 10),
+        "irpx_explain_k2_once_k1_ten": baked_launches == _launches(1, 10),
         "irpx_explain_bit_equal_live": all(
             bool(np.array_equal(a, b)) for a, b in zip(baked, live_cam)),
         "irpx_on_cpu_equals_cpu_predictor": cpu_equal})
@@ -1561,10 +1784,8 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
         "explains_all_200_png": not bad_explains,
         "explain_requests_counted": stats["explain"]["requests"]
         == n_explains,
-        "daemon_k2_once_k1_ten_per_batch": serve_launches == {
-            "eval_preprocess": dispatches,
-            "identity_bottleneck": 10 * dispatches,
-            "frozen_epilogue": 10 * dispatches},
+        "daemon_k2_once_k1_ten_per_batch": serve_launches == _launches(
+            dispatches, 10 * dispatches),
         "reload_no_failed_predict": not errors
         and len(answered) > answered_before > 0,
         "reload_generation_1": reloaded["generation"] == 1
@@ -1582,9 +1803,8 @@ def _explain_phase(out: dict, seed: int, tmp: str) -> None:
 
     checks.update({
         "irpx_daemon_explain_and_predict": bool(irpx_ok),
-        "irpx_daemon_k2_once_k1_ten_each": irpx_launches == {
-            "eval_preprocess": 2, "identity_bottleneck": 20,
-            "frozen_epilogue": 20}})
+        "irpx_daemon_k2_once_k1_ten_each": irpx_launches == _launches(
+            2, 20)})
     out["launches"]["explain"] = {
         key: (gc_launches[key] + art_launches[key] + baked_launches[key]
               + serve_launches[key] + irpx_launches[key])
@@ -1711,9 +1931,8 @@ def _family_run(family: str, variant: str, seed: int, tmp: str,
         p.predict_probs(batches[b])
     torch.cuda.synchronize()
     counts = _launch_counts()
-    checks["predict_k2_once_per_batch_k1_never"] = counts == {
-        "eval_preprocess": len(FAMILY_BATCHES), "identity_bottleneck": 0,
-        "frozen_epilogue": 0}
+    checks["predict_k2_once_per_batch_k1_never"] = counts == _launches(
+        len(FAMILY_BATCHES), 0)
     _add_launches(launches, counts)
 
     # bf16 against the card's f32 forward, and the card's f32 against the
@@ -1748,9 +1967,7 @@ def _family_run(family: str, variant: str, seed: int, tmp: str,
     cams32_2, _ = GradCAM(f32, batch_size=2).explain(eight[:2])
     cam_cpu_diff = float(np.abs(cams_cpu - cams32_2).max())
     checks.update({
-        "gradcam_k2_once_k1_never": gc_counts == {
-            "eval_preprocess": 1, "identity_bottleneck": 0,
-            "frozen_epilogue": 0},
+        "gradcam_k2_once_k1_never": gc_counts == _launches(1, 0),
         "cams_finite_in_0_1": bool(np.isfinite(cams).all()
                                    and cams.min() >= 0 and cams.max() <= 1),
         "cam_bf16_vs_f32_le_tol": cam_drift <= FAMILY_CAM_TOL[family],
@@ -1778,9 +1995,7 @@ def _family_run(family: str, variant: str, seed: int, tmp: str,
             art_probs, pred.predict_probs(images))),
         "irpx_explain_bit_equal_live": all(
             bool(np.array_equal(a, b)) for a, b in zip(art_cams, live_cams)),
-        "irpx_k2_once_each_k1_never": art_counts == {
-            "eval_preprocess": 2, "identity_bottleneck": 0,
-            "frozen_epilogue": 0}})
+        "irpx_k2_once_each_k1_never": art_counts == _launches(2, 0)})
     report.update({
         "prob_drift_bf16_vs_f32": drift,
         "logit_diff_card_f32_vs_cpu_f32": cpu_logit_diff,
@@ -1897,9 +2112,8 @@ def _families_phase(out: dict, seed: int, tmp: str) -> None:
         "daemon_all_200": not errors and not bad,
         "daemon_requests_counted": stats["requests"] == 2 * N_REQUESTS
         and stats["explain"]["requests"] == N_FAMILY_EXPLAINS,
-        "daemon_k2_once_per_dispatch_k1_never": daemon_counts == {
-            "eval_preprocess": dispatches, "identity_bottleneck": 0,
-            "frozen_epilogue": 0},
+        "daemon_k2_once_per_dispatch_k1_never": daemon_counts == _launches(
+            dispatches, 0),
         "healthz_vit_without_depth": health["model"]["family"] == "vit"
         and "depth" not in health["model"]})
     out["launches"]["families"] = launches
@@ -2508,6 +2722,7 @@ def phase_train(out: dict, seed: int) -> None:
     eval_batches = math.ceil(train_cfg.eval_samples / train_cfg.batch_size)
     want_k1 = 10 * train_cfg.max_epochs * (steps + eval_batches)
     want_k2 = train_cfg.max_epochs * eval_batches
+    want_bn = 10 * train_cfg.max_epochs * steps  # layer4's, train forwards
 
     t0 = time.perf_counter()
     cw = info.class_weights
@@ -2571,6 +2786,8 @@ def phase_train(out: dict, seed: int) -> None:
         "k1_ten_per_forward": launches["identity_bottleneck"] == want_k1,
         "epilogue_ten_per_forward": launches["frozen_epilogue"] == want_k1,
         "k2_once_per_eval_batch": launches["eval_preprocess"] == want_k2,
+        "bn_train_ten_per_train_forward": launches["batch_norm_train"]
+        == want_bn,
     }
     for state, r in k1.items():
         checks[f"{state}_grads_finite"] = r["finite"]
@@ -2596,9 +2813,8 @@ def phase_train(out: dict, seed: int) -> None:
           "gates_s": gates_s, "throughput_s": ips_s,
           "history": h, "best_val_acc": res.best_val_acc,
           "launches": launches,
-          "expected_launches": {"identity_bottleneck": want_k1,
-                                "frozen_epilogue": want_k1,
-                                "eval_preprocess": want_k2},
+          "expected_launches": _launches(want_k2, want_k1,
+                                         bn_train=want_bn),
           "step_k1_vs_cudnn": k1, "step_card_vs_cpu_random_init": card_cpu,
           "train_images_per_s": ips, "checks": checks})
     out["train_images_per_s"] = ips
@@ -2623,6 +2839,13 @@ FT_WARMUP = 3
 FT_IDLE_STEPS = 5  # profiled B=32 steps per model for the idle share
 FT_SWEEP_TRAIN_SHARDS = 4  # 1,024 JPEGs for the sweep and the final run
 FT_FINAL_EPOCHS = 2
+# train-mode BatchNorms a train forward runs through the op, at the
+# families' default trainable stages: EfficientNet-B0's last block (its
+# expansion and depthwise BNs, 1152 channels; its projection's, 320) and
+# its head conv's (1280); ViT and ConvNeXt have none
+FT_BN_PER_FORWARD = {"vit": 0, "convnext": 0, "efficientnet": 4}
+# and ResNet50's at its default trainable stage, layer4
+RESNET50_BN_PER_FORWARD = 10
 # A gradient that vanishes but for rounding (a BN's bias whose output
 # reaches the loss only through a BatchNorm collecting statistics, as
 # EfficientNet's stage7_block0 project BN before the top BN) is held to
@@ -2652,11 +2875,13 @@ def _ft_cfg(family: str, variant: str, **kw):
 
 
 def _ft_counts() -> dict:
+    from irp_tpu_torch.ops.cuda_batch_norm import batch_norm_train
     from irp_tpu_torch.ops.cuda_image import eval_preprocess
     from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
 
     return {"eval_preprocess": eval_preprocess.launches,
-            "identity_bottleneck": fused_identity_bottleneck.launches}
+            "identity_bottleneck": fused_identity_bottleneck.launches,
+            "batch_norm_train": batch_norm_train.launches}
 
 
 def _ft_fit(family, variant, seed, train, val, info) -> tuple:
@@ -2704,7 +2929,9 @@ def _ft_fit(family, variant, seed, train, val, info) -> tuple:
         "frozen_tensors": len(params) - len(trainable),
         "frozen_bn_buffers": len(frozen_bn), "launches": launches,
         "expected_launches": {"eval_preprocess": FT_EPOCHS * eval_batches,
-                              "identity_bottleneck": 0}}
+                              "identity_bottleneck": 0,
+                              "batch_norm_train": FT_EPOCHS * FT_STEPS
+                              * FT_BN_PER_FORWARD[family]}}
     checks = {
         "losses_finite": bool(np.isfinite(h["train_loss"]).all()
                               and np.isfinite(h["val_loss"]).all()),
@@ -2972,7 +3199,9 @@ def _ft_clis(seed, tmp) -> tuple:
         "launches": _ft_counts(),
         "expected_launches": _sweep_launches(
             folds, 1, batch=16, eval_samples=512, train_samples=1024,
-            epochs=2, n_samples_of=n_of) | {"identity_bottleneck": 0},
+            epochs=2, n_samples_of=n_of,
+            bn_per_forward=FT_BN_PER_FORWARD["efficientnet"])
+        | {"identity_bottleneck": 0},
         "trials": [(t.state, t.value) for t in trials], **probe.summary()}
     checks["sweep_rc_0"] = rc == 0
     checks["sweep_trial_complete"] = (
@@ -2991,6 +3220,7 @@ def _ft_clis(seed, tmp) -> tuple:
                              "--cache-dir", cache, "--checkpoint-dir", ckpt,
                              *family])
     res = probe.results[0]
+    final_fit = probe.fits[0][1]
     client = tracking.TrackingClient(uri)
     artifacts = client.list_artifacts(res.run_id)
     npz = client.artifact_path(res.run_id, "final_model.npz")
@@ -2999,8 +3229,12 @@ def _ft_clis(seed, tmp) -> tuple:
     runs["final"] = {
         "seconds": time.perf_counter() - t0, "rc": rc,
         "launches": _ft_counts(),
-        "expected_launches": {"eval_preprocess": math.ceil(
-            n_test / FINAL_BATCH), "identity_bottleneck": 0},
+        "expected_launches": {
+            "eval_preprocess": math.ceil(n_test / FINAL_BATCH),
+            "identity_bottleneck": 0,
+            "batch_norm_train": FT_BN_PER_FORWARD["efficientnet"]
+            * len(final_fit.history["train_ms"])
+            * final_fit.steps_per_epoch},
         **probe.summary(n_test), "artifacts": artifacts,
         "model": {"family": card.family, "width_mult": card.width_mult,
                   "depth_mult": card.depth_mult,
@@ -3039,7 +3273,8 @@ def _ft_clis(seed, tmp) -> tuple:
         "imgs_per_sec": summary.get("imgs_per_sec"),
         "label_agreement_with_eval": agree, "launches": launches,
         "expected_launches": {"eval_preprocess": math.ceil(n_test / 256),
-                              "identity_bottleneck": 0}}
+                              "identity_bottleneck": 0,
+                              "batch_norm_train": 0}}
     checks["predict_rc_0"] = rc == 0
     checks["predict_agreement"] = agree >= PREDICT_AGREEMENT
     for name in ("sweep", "final", "predict"):
@@ -3087,7 +3322,8 @@ def phase_families_train(out: dict, seed: int) -> None:
     t_phase = time.perf_counter()
     train, val, info = _train_sets(seed, FT_TRAIN, FT_VAL)
     checks, report = {}, {"fits": {}, "steps": {}}
-    launches = {"eval_preprocess": 0, "identity_bottleneck": 0}
+    launches = {"eval_preprocess": 0, "identity_bottleneck": 0,
+                "batch_norm_train": 0}
     init_sd = {}
     for family, variant in FAMILY_MODELS:
         t0 = time.perf_counter()
@@ -3259,10 +3495,12 @@ class _SweepProbe:
 
 
 def _sweep_launches(folds, n_fits_per_fold, batch, eval_samples,
-                    train_samples, epochs, n_samples_of) -> dict:
-    """The launches a sweep's fold-fits make: K2 once per eval batch, and
-    K1 10 per train and eval forward when it is on."""
-    k2 = k1_forwards = 0
+                    train_samples, epochs, n_samples_of,
+                    bn_per_forward: int) -> dict:
+    """The launches a sweep's fold-fits make: K2 once per eval batch, K1
+    10 per train and eval forward when it is on, and the train-mode
+    BatchNorm op ``bn_per_forward`` per train forward."""
+    k2 = k1_forwards = train_forwards = 0
     for val in folds:
         n_val = sum(n_samples_of[s] for s in val)
         n_train = sum(n_samples_of.values()) - n_val
@@ -3270,7 +3508,9 @@ def _sweep_launches(folds, n_fits_per_fold, batch, eval_samples,
         steps = min(n_train // batch, max(train_samples // batch, 1))
         k2 += n_fits_per_fold * epochs * eval_batches
         k1_forwards += n_fits_per_fold * epochs * (steps + eval_batches)
-    return {"eval_preprocess": k2, "identity_bottleneck": 10 * k1_forwards}
+        train_forwards += n_fits_per_fold * epochs * steps
+    return {"eval_preprocess": k2, "identity_bottleneck": 10 * k1_forwards,
+            "batch_norm_train": bn_per_forward * train_forwards}
 
 
 def phase_hyperopt(out: dict, seed: int) -> None:
@@ -3293,6 +3533,7 @@ def phase_hyperopt(out: dict, seed: int) -> None:
     from irp_tpu_torch.hyperopt.objective import HyperoptContext, quick_space
     from irp_tpu_torch.hyperopt.runner import run_kfold_optimization
     from irp_tpu_torch.hyperopt.study import create_study
+    from irp_tpu_torch.ops.cuda_batch_norm import batch_norm_train
     from irp_tpu_torch.ops.cuda_image import eval_preprocess
     from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
 
@@ -3309,11 +3550,13 @@ def phase_hyperopt(out: dict, seed: int) -> None:
         # quick space: batch 16, 2 epochs; the context's caps 1024 / 512
         expect = functools.partial(_sweep_launches, folds, batch=16,
                                    eval_samples=512, train_samples=1024,
-                                   epochs=2, n_samples_of=n_of)
+                                   epochs=2, n_samples_of=n_of,
+                                   bn_per_forward=RESNET50_BN_PER_FORWARD)
 
         # (a) the CLI, K1 off
         eval_preprocess.launches = 0
         fused_identity_bottleneck.launches = 0
+        batch_norm_train.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _SweepProbe() as probe:
@@ -3327,7 +3570,8 @@ def phase_hyperopt(out: dict, seed: int) -> None:
                         "launches": {
                             "eval_preprocess": eval_preprocess.launches,
                             "identity_bottleneck":
-                                fused_identity_bottleneck.launches},
+                                fused_identity_bottleneck.launches,
+                            "batch_norm_train": batch_norm_train.launches},
                         "expected_launches": dict(
                             expect(n_fits_per_fold=HPO_TRIALS),
                             identity_bottleneck=0),
@@ -3347,6 +3591,7 @@ def phase_hyperopt(out: dict, seed: int) -> None:
         printed = io.StringIO()
         eval_preprocess.launches = 0
         fused_identity_bottleneck.launches = 0
+        batch_norm_train.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _SweepProbe() as probe, contextlib.redirect_stdout(printed):
@@ -3355,7 +3600,8 @@ def phase_hyperopt(out: dict, seed: int) -> None:
             "seconds": time.perf_counter() - t0,
             "launches": {"eval_preprocess": eval_preprocess.launches,
                          "identity_bottleneck":
-                             fused_identity_bottleneck.launches},
+                             fused_identity_bottleneck.launches,
+                         "batch_norm_train": batch_norm_train.launches},
             "expected_launches": expect(n_fits_per_fold=1),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             **probe.summary()}
@@ -3392,7 +3638,8 @@ def phase_hyperopt(out: dict, seed: int) -> None:
                 and all(r["prefix_labels_equal_subset"]))
         out["launches"]["hyperopt"] = {
             key: sum(r["launches"][key] for r in runs.values())
-            for key in ("eval_preprocess", "identity_bottleneck")}
+            for key in ("eval_preprocess", "identity_bottleneck",
+                        "batch_norm_train")}
         del ctx, cached
 
     # (c) the pool at the reference dataset's size
@@ -3600,6 +3847,7 @@ def phase_final(out: dict, seed: int) -> None:
     from irp_tpu_torch.data.pipeline import build_cache
     from irp_tpu_torch.hyperopt.study import create_study
     from irp_tpu_torch.infer import load_predictor
+    from irp_tpu_torch.ops.cuda_batch_norm import batch_norm_train
     from irp_tpu_torch.ops.cuda_image import eval_preprocess
     from irp_tpu_torch.ops.cuda_resnet import fused_identity_bottleneck
     from irp_tpu_torch.train import final as final_mod
@@ -3607,11 +3855,13 @@ def phase_final(out: dict, seed: int) -> None:
     def zero():
         eval_preprocess.launches = 0
         fused_identity_bottleneck.launches = 0
+        batch_norm_train.launches = 0
         torch.cuda.reset_peak_memory_stats()
 
     def counts():
         return {"eval_preprocess": eval_preprocess.launches,
-                "identity_bottleneck": fused_identity_bottleneck.launches}
+                "identity_bottleneck": fused_identity_bottleneck.launches,
+                "batch_norm_train": batch_norm_train.launches}
 
     checks, runs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3631,6 +3881,7 @@ def phase_final(out: dict, seed: int) -> None:
                                  "--checkpoint-dir", ckpt])
         res_a = probe.results[0]
         eval_a = probe.evals[0][1]
+        fit_a = probe.fits[0][1]
         client = tracking.TrackingClient(uri)
         run_a = client.get_run(res_a.run_id)
         artifacts = client.list_artifacts(res_a.run_id)
@@ -3639,7 +3890,10 @@ def phase_final(out: dict, seed: int) -> None:
                        "expected_launches": {
                            "eval_preprocess": math.ceil(n_test
                                                         / FINAL_BATCH),
-                           "identity_bottleneck": 0},
+                           "identity_bottleneck": 0,
+                           "batch_norm_train": RESNET50_BN_PER_FORWARD
+                           * len(fit_a.history["train_ms"])
+                           * fit_a.steps_per_epoch},
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                        **probe.summary(n_test),
                        "final_epochs": run_a["params"].get("final_epochs"),
@@ -3684,7 +3938,8 @@ def phase_final(out: dict, seed: int) -> None:
             "expected_launches": {
                 "eval_preprocess": math.ceil(n_test / FINAL_BATCH),
                 "identity_bottleneck": 10 * (steps + math.ceil(
-                    n_test / FINAL_BATCH))},
+                    n_test / FINAL_BATCH)),
+                "batch_norm_train": RESNET50_BN_PER_FORWARD * steps},
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             **probe.summary(n_test)}
         checks["resumed_one_epoch"] = runs["resumed_k1"]["epochs"] == 1
@@ -3725,7 +3980,8 @@ def phase_final(out: dict, seed: int) -> None:
             "launches": launches_c,
             "expected_launches": {"eval_preprocess": math.ceil(n_test / 256),
                                   "identity_bottleneck": 10 * math.ceil(
-                                      n_test / 256)},
+                                      n_test / 256),
+                                  "batch_norm_train": 0},
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "pth_npz_probs_equal": bool(np.array_equal(p_npz, p_pth))}
         checks["predict_rc_0"] = rc_c == 0
@@ -3739,7 +3995,8 @@ def phase_final(out: dict, seed: int) -> None:
         checks["pth_npz_probs_equal"] = runs["predict"]["pth_npz_probs_equal"]
         out["launches"]["final"] = {
             key: sum(r["launches"][key] for r in runs.values())
-            for key in ("eval_preprocess", "identity_bottleneck")}
+            for key in ("eval_preprocess", "identity_bottleneck",
+                        "batch_norm_train")}
         del train_cached, test_cached
     emit({"phase": "final",
           "model": "ResNet50/224 bf16, 10 classes, hidden 512, random init",
@@ -4001,8 +4258,7 @@ def phase_fidelity(out: dict, seed: int) -> None:
             checks[f"{name}_rc_0_le_1e-3"] = rc == 0
             checks[f"{name}_{FIDELITY_SAMPLES}_samples"] = (
                 m is not None and int(m.group(1)) == FIDELITY_SAMPLES)
-            checks[f"{name}_k2_once_k1_zero"] = launches == {
-                "eval_preprocess": 1, "identity_bottleneck": 0}
+            checks[f"{name}_k2_once_k1_zero"] = launches == _launches(1, 0)
             for key in totals:
                 totals[key] += launches[key]
             emit({"phase": "fidelity", "model": name, **results[name]})
@@ -4046,8 +4302,7 @@ def phase_monitor(out: dict, seed: int) -> None:
     k2 = [k for k in kernels if K2_KERNEL_NAME in k]
     checks["trace_written"] = len(files) == 1
     checks["trace_names_k2"] = len(k2) == 1
-    checks["k2_once_k1_zero"] = launches == {"eval_preprocess": 1,
-                                             "identity_bottleneck": 0}
+    checks["k2_once_k1_zero"] = launches == _launches(1, 0)
     out["launches"]["monitor"] = launches
     emit({"phase": "monitor", "device_memory_stats": stats,
           "trace_events": len(events), "trace_kernels": len(kernels),

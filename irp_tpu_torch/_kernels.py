@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
                          "irp_tpu_torch")
 SOURCES = ("eval_preprocess", "identity_bottleneck", "pairwise_topk",
-           "copy_floor", "frozen_epilogue")
+           "copy_floor", "frozen_epilogue", "bn_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.POINTER(ctypes.c_float)
+_R = ctypes.c_float
 # restype, argtypes of every C entry point, by library
 SIGNATURES = {
     "eval_preprocess": {
@@ -55,6 +56,13 @@ SIGNATURES = {
         "irp_bias_relu": (_I, [_P] * 3 + [_L, _I, _P]),
         "irp_bias_add_relu": (_I, [_P] * 5 + [_L, _I, _P]),
         "irp_bias_relu_maxpool": (_I, [_P] * 3 + [_I] * 6 + [_P]),
+    },
+    "bn_train": {
+        "irp_bn_fw_stats": (_I, [_P] + [_I] * 5 + [_P] * 5
+                            + [_R, _R, _I, _P]),
+        "irp_bn_fw_normalize": (_I, [_P] * 4 + [_R, _P] + [_I] * 4 + [_P]),
+        "irp_bn_bw_reduce": (_I, [_P] * 4 + [_R] + [_I] * 5 + [_P] * 6),
+        "irp_bn_bw_dx": (_I, [_P] * 5 + [_I] * 4 + [_P]),
     },
 }
 
@@ -178,5 +186,10 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as a pointer-sized int."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device``, as a pointer-sized int
+    (``torch.cuda.current_stream(device).cuda_stream`` without building
+    a Stream object)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

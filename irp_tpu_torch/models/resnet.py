@@ -39,6 +39,10 @@ import torch.utils.checkpoint
 from irp_tpu_torch.models.layers import (Conv2d, at_least_f32, flax_init_,
                                          nchw, nhwc)
 from irp_tpu_torch.parallel.distributed import all_reduce_sum_autograd
+from irp_tpu_torch.ops.cuda_batch_norm import (batch_moments,
+                                               batch_norm_train,
+                                               normalize_plain,
+                                               update_running_stats)
 from irp_tpu_torch.ops.cuda_resnet import (fold_bn_into_conv,
                                            frozen_epilogue,
                                            fused_identity_bottleneck)
@@ -66,7 +70,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance.  ``F.batch_norm`` would move ``running_var`` toward the
     unbiased variance (n / (n - 1) larger), which the JAX package never
     does.  ``hold_stats`` (set while a checkpointed block recomputes its
-    forward) leaves the running buffers where they are.
+    forward) leaves the running buffers where they are.  A bf16 CUDA
+    input with a bf16 ``compute_dtype`` and no ``group`` (:meth:`takes_op`)
+    takes the op ``ops/cuda_batch_norm.py::batch_norm_train``: the same
+    formula with its backward written by hand (kernels
+    ``csrc/bn_train.cu``).  Every other input runs the formula as PyTorch
+    ops, differentiated by autograd.
 
     ``group`` (a process group, set by :func:`sync_batch_stats`): the
     moments are the global batch's, as the JAX package's forward on the
@@ -85,6 +94,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.hold_stats = False
         self.group = None
 
+    def takes_op(self, x) -> bool:
+        """Whether a train-mode forward on ``x`` runs the op
+        ``batch_norm_train``: a bf16 CUDA input, a bf16 compute dtype and
+        no ``group`` (whose all-reduce sits between the moments and the
+        normalisation)."""
+        return (self.group is None and x.is_cuda
+                and x.dtype == torch.bfloat16
+                and self.compute_dtype == torch.bfloat16)
+
     def forward(self, x):
         if not self.training or self.frozen:
             xf = at_least_f32(x)
@@ -93,31 +111,29 @@ class BatchNorm2d(nn.BatchNorm2d):
                              self.running_var.to(dt), self.weight.to(dt),
                              self.bias.to(dt), False, 0.0, self.eps)
             return y.to(self.compute_dtype)
+        if self.takes_op(x):
+            return batch_norm_train(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.momentum, self.eps,
+                                    update=not self.hold_stats)
         xf = at_least_f32(x)
         if self.group is None:
-            mean = xf.mean(dim=(0, 2, 3))
-            ex2 = (xf * xf).mean(dim=(0, 2, 3))
+            mean, ex2 = batch_moments(xf)
         else:
             # every rank holds an equal share of the global batch: the
             # global moments are the mean of the ranks' moments (over one
             # rank, this rank's, bit for bit)
             c = xf.shape[1]
-            sums = all_reduce_sum_autograd(torch.cat(
-                [xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))]),
-                self.group)
+            sums = all_reduce_sum_autograd(torch.cat(batch_moments(xf)),
+                                           self.group)
             ranks = torch.distributed.get_world_size(self.group)
             mean, ex2 = sums[:c] / ranks, sums[c:] / ranks
-        var = (ex2 - mean * mean).clamp_min(0.0)
+        var_raw = ex2 - mean * mean
         if not self.hold_stats:
-            with torch.no_grad():
-                keep = 1.0 - self.momentum
-                self.running_mean.copy_(keep * self.running_mean
-                                        + self.momentum * mean)
-                self.running_var.copy_(keep * self.running_var
-                                       + self.momentum * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+            update_running_stats(self.running_mean, self.running_var, mean,
+                                 var_raw, self.momentum)
+        y = normalize_plain(xf, mean, var_raw, self.weight, self.bias,
+                            self.eps)
         return y.to(self.compute_dtype)
 
 

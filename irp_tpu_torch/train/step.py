@@ -8,7 +8,9 @@ autograd, its identity bottlenecks through K1 on the card under
 backward and the optimizer update, each a span (``utils/monitor.py``:
 ``train.step`` holding ``train.augment``, ``train.forward`` and
 ``train.backward`` per micro-batch, and ``train.optimizer``; the models
-add ``train.forward.frozen``).  Its random draws come from a device
+add ``train.forward.frozen``; ``train.forward`` counts the train-mode
+BatchNorm op's launches on the card, ``bn_train_launches``).  Its
+random draws come from a device
 generator (per-image augmentation, stochastic-depth and dropout masks)
 and a host numpy generator (the per-step mixing scalars).  An epoch is a Python loop over
 the sampler's window offsets; metrics stay on the device until it ends.
@@ -50,6 +52,7 @@ import torch
 from irp_tpu_torch.models.classifier import (mixed_weighted_cross_entropy,
                                              weighted_cross_entropy)
 from irp_tpu_torch.models.layers import sample_sd_masks
+from irp_tpu_torch.ops.cuda_batch_norm import batch_norm_train
 from irp_tpu_torch.ops.mix import MixDraws, mix_batch, sample_mix_draws
 from irp_tpu_torch.parallel.distributed import (all_reduce_grads,
                                                 all_reduce_sum)
@@ -196,13 +199,16 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
             dropout_masks, sd_masks = _global_masks(
                 model, cfg.dropout_rate, generator, b, mesh, x_nhwc.device,
                 dropout_masks, sd_masks)
-        with monitor.span("train.forward"):
+        with monitor.span("train.forward") as span:
+            bn_launches = batch_norm_train.launches
             logits = model(_nchw(x_nhwc), cfg.dropout_rate, dropout_masks,
                            generator, sd_masks)
             denom = None if mesh is None else _denominator(
                 labels, class_weights, mesh)
             loss = _loss(logits, labels, labels_b, lam, class_weights,
                          cfg.label_smoothing, denom)
+            span.count("bn_train_launches",
+                       batch_norm_train.launches - bn_launches)
         with monitor.span("train.backward"), model.precision_scope(x_nhwc):
             loss.backward()
         return loss.detach(), _correct(logits.detach(), labels, labels_b,
@@ -226,11 +232,14 @@ def loss_and_grads(model, x_nhwc, labels, cfg: StepConfig,
         if mesh is not None:
             drop, sd = _global_masks(model, cfg.dropout_rate, generator,
                                      blk, mesh, x_nhwc.device, drop, sd)
-        with monitor.span("train.forward"):
+        with monitor.span("train.forward") as span:
+            bn_launches = batch_norm_train.launches
             logits = model(_nchw(x_nhwc[sl]), cfg.dropout_rate, drop,
                            generator, sd)
             loss = _loss(logits, labels[sl], lb, lam, class_weights,
                          cfg.label_smoothing, denom)
+            span.count("bn_train_launches",
+                       batch_norm_train.launches - bn_launches)
         with monitor.span("train.backward"), model.precision_scope(x_nhwc):
             loss.backward()
         loss_sum += loss.detach()

@@ -454,4 +454,7 @@ def test_train_step_spans_and_tracing_changes_nothing(family):
     # K1 counts its launches on the card alone; a ResNet18 folds nothing
     assert frozen == ([{"k1_launches": 0, "epilogue_launches": 0}] * 2
                       if family == "resnet" else [{}] * 2)
+    # the train-mode BatchNorm op runs on the card alone
+    assert [r["counts"] for r in records if r["name"] == "train.forward"] \
+        == [{"bn_train_launches": 0}] * 2
     assert all(r["device_ms"] >= 0 for r in records)  # host clock here
