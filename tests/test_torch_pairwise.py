@@ -192,63 +192,3 @@ def test_knn_hands_contiguous_row_blocks_to_the_kernel(monkeypatch):
     i_got, _ = outliers.knn(x, 4, block=16, device="cpu")
     assert seen == [True] * 4
     np.testing.assert_array_equal(i_got, i_want)
-
-
-def _grid(n, d):
-    """n points of an integer grid in d dimensions: exact f32 distances."""
-    side = int(np.ceil(n ** (1.0 / d)))
-    pts = np.stack(np.meshgrid(*[np.arange(side)] * d, indexing="ij"), -1)
-    return pts.reshape(-1, d)[:n].astype(np.float32)
-
-
-def _agree(got, want, a, b):
-    """Share of equal indices, and the largest squared-distance gap over
-    max(|a_i|^2 + |b_j|^2)."""
-    scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
-    return (float((got[1] == want[1]).float().mean()),
-            float((got[0] - want[0]).abs().max()) / max(scale, 1e-30))
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_card():
-    """The kernel against its plain version (cuBLAS f32, no TF32) at the
-    kNN's three shapes and the edges of its tiling: k = 1 and 128, M not
-    a multiple of the row tile, N below one column tile, splits shorter
-    than k, self_offset -1 and > 0.  >= 99.9% equal indices and squared
-    distances within 1e-5 * max(|a_i|^2 + |b_j|^2); on an integer grid
-    (exact distances) the indices are equal; among exact duplicates the
-    lower index comes first; k = 129 raises."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    topk, plain = cuda_image.pairwise_topk, cuda_image.pairwise_topk_plain
-    # (m, n, d, k, self_offset); a is b[off:off + m] where that fits,
-    # else points of its own
-    cases = [(1024, 26_179, 50, 15, 0), (1024, 26_179, 2, 75, 1024),
-             (570, 2618, 2, 30, 2048), (200, 300, 50, 1, -1),
-             (129, 50, 3, 20, -1), (129, 150, 3, 20, 60),
-             (65, 2618, 2, 128, 0), (33, 5000, 64, 128, -1),
-             (300, 1000, 128, 32, 100)]
-    for m, n, d, k, off in cases:
-        b = torch.from_numpy(_points(n + d, n, d, 3.0)).cuda()
-        a = b[off:off + m].contiguous() if 0 <= off <= n - m else \
-            torch.from_numpy(_points(m + d, m, d, 3.0)).cuda()
-        before = topk.launches
-        got = topk(a, b, k, self_offset=off)
-        want = plain(a, b, k, self_offset=off)
-        assert topk.launches == before + 1
-        share, gap = _agree(got, want, a, b)
-        assert share >= 0.999 and gap <= 1e-5, (m, n, d, k, off)
-    for m, n, d, k in ((200, 1000, 2, 15), (100, 700, 3, 75)):
-        g = torch.from_numpy(_grid(n, d)).cuda()
-        got = topk(g[:m].contiguous(), g, k, self_offset=0)
-        want = plain(g[:m].contiguous(), g, k, self_offset=0)
-        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-    base = _points(9, 2000, 52)
-    dup = torch.from_numpy(np.concatenate([base, base[:300], base[:150]])
-                           ).cuda()
-    got = topk(dup, dup, 8, self_offset=0)
-    tie = got[0][:, 1:] == got[0][:, :-1]
-    assert bool((got[1][:, 1:][tie] > got[1][:, :-1][tie]).all())
-    with pytest.raises(ValueError, match="128"):
-        topk(a, b, 129)
